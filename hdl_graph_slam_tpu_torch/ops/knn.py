@@ -1,0 +1,177 @@
+"""Exact brute-force nearest-neighbour search (port of hdl_graph_slam_tpu/ops/knn.py
+and of the TPU kernel hdl_graph_slam_tpu/ops/pallas_nn.py).
+
+Two functions have hand-written Hopper kernels (csrc/knn.cu), each with its
+plain PyTorch twin here:
+
+- ``nn1``: exact 1-NN, the function of the TPU kernel ``nn1_pallas`` and of
+  the XLA ``nn1``. GICP association runs it at every re-association.
+- ``knn_select``: the exact k nearest neighbours, the port's counterpart of
+  ``knn_approx`` as GICP preprocessing calls it (neighbour set only, with the
+  expanded-form distances). Exact selection is a superset of the 0.85 recall
+  ``knn_approx`` guarantees.
+
+A wrapper runs the plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises; nothing falls back. Each wrapper
+counts its kernel launches in ``<wrapper>.launches``.
+
+Selection arithmetic (both versions): coordinates are centred on the bounding
+box of the valid targets (|x| < 1e5 on every axis) and ranked by
+d = |t|^2 - 2 q.t in float32, never TF32: NN selection precision is a
+correctness surface (package docstring). The lowest index wins ties.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import kernels
+
+_VALID_ABS = 1.0e5
+
+
+def _bbox_center(target: torch.Tensor) -> torch.Tensor:
+    """Midpoint of the valid targets' bounding box (0 on an axis with none)."""
+    valid = (target.abs() < _VALID_ABS).all(dim=-1, keepdim=True)
+    lo = torch.where(valid, target, _VALID_ABS).amin(dim=0)
+    hi = torch.where(valid, target, -_VALID_ABS).amax(dim=0)
+    return torch.where(hi >= lo, 0.5 * (lo + hi), 0.0)
+
+
+def _check(name: str, query: torch.Tensor, target: torch.Tensor) -> None:
+    for what, x in (("query", query), ("target", target)):
+        if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != 3:
+            raise ValueError(f"{name}: {what} must be (n, 3) float32, got {tuple(x.shape)} {x.dtype}")
+    if query.device != target.device:
+        raise ValueError(f"{name}: query on {query.device}, target on {target.device}")
+    if query.shape[0] == 0 or target.shape[0] == 0:
+        raise ValueError(f"{name}: empty query or target")
+
+
+def nn1_plain(query: torch.Tensor, target: torch.Tensor, chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch exact 1-NN: the same centring and expansion as the
+    kernel, min plus masked-iota argmin (lowest index among ties), then the
+    exact squared distance of the winner."""
+    center = _bbox_center(target)
+    tc = target - center
+    t_norm2 = (tc * tc).sum(-1)
+    cols = torch.arange(target.shape[0], dtype=torch.int32, device=target.device)
+    idx = []
+    for qc in torch.split(query - center, chunk):
+        d = -2.0 * (qc @ tc.T) + t_norm2
+        dmin = d.amin(dim=-1, keepdim=True)
+        idx.append(torch.where(d <= dmin, cols, 2**30).amin(dim=-1))
+    idx = torch.clamp(torch.cat(idx), max=target.shape[0] - 1)
+    diff = query - target[idx]
+    return idx, (diff * diff).sum(-1)
+
+
+def nn1(query: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN: for each query row the index (int32) of the closest target
+    row and the exact squared distance. query (N,3), target (M,3) float32 with
+    PAD_COORD sentinels in invalid rows -> (N,), (N,)."""
+    _check("nn1", query, target)
+    if query.device.type == "cpu":
+        return nn1_plain(query, target)
+    if query.device.type != "cuda":
+        raise ValueError(f"nn1: unsupported device {query.device}")
+    query, target = query.contiguous(), target.contiguous()
+    n, m = query.shape[0], target.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=query.device)
+    dist2 = torch.empty(n, dtype=torch.float32, device=query.device)
+    lib = kernels.load("knn")
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    kernels.check(lib.hgs_nn1(query.data_ptr(), n, target.data_ptr(), m,
+                              idx.data_ptr(), dist2.data_ptr(), stream), "nn1")
+    nn1.launches += 1
+    return idx, dist2
+
+
+nn1.launches = 0
+
+
+KNN_SELECT_K = 20  # the k the kernel is compiled for (GICP's correspondence_randomness)
+
+
+def knn_select_plain(query: torch.Tensor, target: torch.Tensor, k: int,
+                     chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch exact k-NN selection: the same centring and expansion
+    as the kernel, then ``torch.topk``. Returns idx (N,k) int32 and the
+    distances |t|^2 - 2 q.t + |q|^2 of the centred coordinates, ascending."""
+    center = _bbox_center(target)
+    tc = target - center
+    t_norm2 = (tc * tc).sum(-1)
+    idx, dist = [], []
+    for qc in torch.split(query - center, chunk):
+        d = -2.0 * (qc @ tc.T) + t_norm2
+        dk, cand = torch.topk(d, k, dim=-1, largest=False, sorted=True)
+        idx.append(cand.to(torch.int32))
+        dist.append(dk + (qc * qc).sum(-1, keepdim=True))
+    return torch.cat(idx), torch.cat(dist)
+
+
+def knn_select(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact k nearest targets of each query: idx (N,k) int32 ordered by
+    distance, with the expanded-form squared distances (N,k). Used where the
+    consumer needs the neighbour SET (GICP covariances)."""
+    _check("knn_select", query, target)
+    if not 0 < k <= target.shape[0]:
+        raise ValueError(f"knn_select: k={k} with {target.shape[0]} targets")
+    if query.device.type == "cpu":
+        return knn_select_plain(query, target, k)
+    if query.device.type != "cuda":
+        raise ValueError(f"knn_select: unsupported device {query.device}")
+    if k != KNN_SELECT_K:
+        raise ValueError(f"knn_select: the kernel is built for k={KNN_SELECT_K}, not {k}")
+    query, target = query.contiguous(), target.contiguous()
+    n, m = query.shape[0], target.shape[0]
+    idx = torch.empty((n, k), dtype=torch.int32, device=query.device)
+    dist = torch.empty((n, k), dtype=torch.float32, device=query.device)
+    lib = kernels.load("knn")
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    kernels.check(lib.hgs_knn_select(query.data_ptr(), n, target.data_ptr(), m, k,
+                                     idx.data_ptr(), dist.data_ptr(), stream), "knn_select")
+    knn_select.launches += 1
+    return idx, dist
+
+
+knn_select.launches = 0
+
+
+def knn(query: torch.Tensor, target: torch.Tensor, k: int, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN indices and exact squared distances, ascending (plain
+    PyTorch on any device): query (N,3), target (M,3) -> (N,k) int32, (N,k)."""
+    center = _bbox_center(target)
+    tc = target - center
+    t_norm2 = (tc * tc).sum(-1)
+    idx, dist = [], []
+    for q in torch.split(query, chunk):
+        d = -2.0 * ((q - center) @ tc.T) + t_norm2
+        cand = torch.topk(d, k, dim=-1, largest=False, sorted=True).indices
+        diff = q[:, None, :] - target[cand]
+        d_exact = (diff * diff).sum(-1)
+        d_sorted, order = torch.sort(d_exact, dim=-1, stable=True)
+        idx.append(torch.gather(cand, -1, order).to(torch.int32))
+        dist.append(d_sorted)
+    return torch.cat(idx), torch.cat(dist)
+
+
+def fitness_score(
+    target_xyz: torch.Tensor,
+    source_xyz: torch.Tensor,
+    source_mask: torch.Tensor,
+    relpose: torch.Tensor,
+    max_range: float = float("inf"),
+) -> torch.Tensor:
+    """PCL getFitnessScore (information_matrix_calculator.cpp:49-80): mean
+    squared 1-NN distance of the transformed source into the target over
+    matches with dist <= max_range; +inf when no point matches."""
+    moved = source_xyz @ relpose[:3, :3].T + relpose[:3, 3]
+    moved = torch.where(source_mask[:, None], moved, 1.0e6)
+    _, d2 = nn1(moved, target_xyz)
+    ok = source_mask & (d2 <= max_range)
+    nr = ok.sum()
+    total = torch.where(ok, d2, 0.0).sum()
+    return torch.where(nr > 0, total / torch.clamp(nr, min=1), float("inf"))
