@@ -11,14 +11,25 @@ before the last line:
 2. build   nvcc builds the kernels of hdl_graph_slam_tpu_torch/csrc/.
 3. kernels At 8192 x 8192, on a prefiltered course scan pair and on uniform
            random clouds with padded rows, each kernel is held against its
-           plain PyTorch version on the card and both are timed with CUDA
-           events. The GPU prefilter is held against the CPU one.
+           plain PyTorch version on the card and checked row by row in
+           float64 (no chosen neighbour farther than the true ones beyond
+           the expanded form's rounding); both are timed with CUDA events
+           (kernel_ms: time per call, the host's launch overhead included;
+           device_ms: device work alone; host_ms: the host's time to issue
+           one call), and each kernel's launch plan and occupancy are
+           printed. The GPU prefilter is held against the CPU one.
+   kernel_edges  the same gates on shapes and data the main path does not
+           reach: one query, m = k, a cloud larger than one shared-memory
+           stage, a cloud with 25 valid rows, and an integer lattice with
+           duplicated points, where ties are exact and the kernels must
+           match their plain twins index for index.
 4. main    bench.py's windowed FAST_GICP odometry (its configs, its course
            with seed 0, 16384-row raw scans, 8192-row filtered clouds) through
            the port's OdometryWindow on cuda, with bench.py's gates; kernel
            launch counts are read around this run.
    With --profile, torch.profiler then traces 16 more frames: device busy
-   time, kernels launched per frame, the top kernels by device time, and
+   time, kernels launched per frame, the top kernels by device time and the
+   port's own kernels' device time per launch, and
    the device idle share twice: over the profiled wall time (which the
    profiler inflates) and over the unprofiled main run's wall time per
    frame.
@@ -60,8 +71,15 @@ NN1_MIN_AGREEMENT = 0.999
 NN1_DIST_RTOL = 1e-4
 # knn_select kernel vs plain: the same rounding may swap the k-th and
 # (k+1)-th neighbour of a row on an exact near-tie, so a few rows may hold
-# another set; every row must still agree up to ties, and nearly all exactly.
+# another set; nearly all must agree exactly.
 KNN_MIN_IDENTICAL_SETS = 0.999
+# Row validity, exact in float64: a chosen neighbour may lose to an unchosen
+# one by at most the expanded form's rounding. Each fp32 d = |t|^2 - 2 q.t
+# carries <= 7 roundings of terms no larger than 2 S, S = |q_c|^2 + |t_c|^2
+# of the two targets compared (centred), so two d's misorder only within
+# ~9 eps32 S; centring adds far less.
+ROW_ULPS = 10
+EPS32 = float(np.finfo(np.float32).eps)
 
 
 def emit(obj) -> None:
@@ -79,17 +97,30 @@ def nvidia_smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
-    """Median over ``batches`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events, after warm-up."""
+def time_ms(fn, reps: int = 20, batches: int = 5, device_only: bool = False) -> float:
+    """Milliseconds per call: the median over ``batches`` of CUDA events
+    around ``reps`` back-to-back calls, after warm-up. By default a call
+    costs at least its host launch overhead (the time a caller sees). With
+    ``device_only`` each batch is queued behind a device-side sleep longer
+    than the host takes to queue it, so the events bracket device work
+    only."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    sleep_cycles = 0
+    if device_only:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        sleep_cycles = int(4 * (time.perf_counter() - t0) * 2.0e9) + 1_000_000  # SM cycles, clock <= 2 GHz
     per = []
     for _ in range(batches):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if sleep_cycles:
+            torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -99,23 +130,149 @@ def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
     return float(np.median(per))
 
 
-def knn_rows_agree(q, t, idx_a, idx_b, rows):
-    """Row-set agreement up to ties: (fraction of rows with identical sets,
-    fraction whose sorted exact float64 distances agree within the expanded
-    form's rounding, max abs difference of those distances)."""
-    q = q.double().cpu().numpy()[rows]
-    t = t.double().cpu().numpy()
-    a = idx_a.cpu().numpy()[rows].astype(np.int64)
-    b = idx_b.cpu().numpy()[rows].astype(np.int64)
-    same = np.mean([set(x) == set(y) for x, y in zip(a, b)])
-    da = np.sort(((q[:, None, :] - t[a]) ** 2).sum(-1), axis=1)
-    db = np.sort(((q[:, None, :] - t[b]) ** 2).sum(-1), axis=1)
-    valid_t = np.all(np.abs(t) < 1e5, axis=1)
-    center = 0.5 * (t[valid_t].min(0) + t[valid_t].max(0))
-    scale = float(((t[valid_t] - center) ** 2).sum(-1).max() + ((q - center) ** 2).sum(-1).max())
-    tol = float(16 * np.finfo(np.float32).eps * scale)
-    err = np.abs(da - db).max(axis=1)
-    return float(same), float(np.mean(err <= tol)), float(err.max()), tol
+def host_ms(fn, reps: int = 200, batches: int = 5) -> float:
+    """Host milliseconds to issue one call: the median over ``batches`` of
+    the host clock around ``reps`` calls issued without a sync, starting
+    from an idle device (the device runs behind; the launch queue holds
+    them all)."""
+    import torch
+
+    per = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e3 / reps)
+    torch.cuda.synchronize()
+    return float(np.median(per))
+
+
+def _centred64(q, t):
+    """Float64 query and target centred on the valid targets' bbox, and |.|^2."""
+    import torch
+
+    t64, q64 = t.double(), q.double()
+    valid = (t.abs() < 1e5).all(-1)
+    c = 0.5 * (t64[valid].amin(0) + t64[valid].amax(0)) if bool(valid.any()) else torch.zeros(3, dtype=t64.dtype,
+                                                                                              device=t.device)
+    qc, tc = q64 - c, t64 - c
+    return qc, tc, (qc * qc).sum(-1), (tc * tc).sum(-1)
+
+
+def rows_valid(q, t, idx, rows, chunk: int = 1024) -> tuple:
+    """Exact float64 check of a selection on the card. idx (N,) for nn1 or
+    (N,k): per row, the largest chosen exact squared distance must not exceed
+    the smallest unchosen one (the true minimum for nn1) by more than
+    ROW_ULPS eps32 S_row, S_row = |q_c|^2 + the larger |t_c|^2 of the two
+    targets compared. Returns (fraction of ``rows`` valid, max excess in
+    units of eps32 S_row; <= 0 means no chosen neighbour loses at all)."""
+    import torch
+
+    qc, tc, qn, tn = _centred64(q, t)
+    idx = idx.long().reshape(idx.shape[0], -1)
+    nn1 = idx.shape[1] == 1
+    ok, excess = [], []
+    for s in range(0, q.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        e = qn[sl, None] + tn[None, :] - 2.0 * (qc[sl] @ tc.T)  # float64: off by ~1e-16 (|q_c|^2 + |t_c|^2)
+        ii = idx[sl]
+        chosen = e.gather(1, ii)
+        cmax, carg = chosen.max(1)
+        other = e if nn1 else e.scatter(1, ii, float("inf"))
+        omin, oarg = other.min(1)
+        t_big = torch.maximum(tn[ii.gather(1, carg[:, None])[:, 0]], tn[oarg])
+        scale = EPS32 * (qn[sl] + t_big)
+        x = torch.where(torch.isfinite(omin), (cmax - omin) / scale, -torch.inf)
+        ok.append(x <= ROW_ULPS)
+        excess.append(x)
+    ok, excess = torch.cat(ok)[rows], torch.cat(excess)[rows]
+    return int(ok.sum()) / ok.numel(), float(excess.max())
+
+
+def check_nn1(knn, q, t, rows, what: str) -> dict:
+    """nn1 kernel vs its plain twin and the exact check; raises on a failed gate."""
+    import torch
+
+    i_k, d_k = knn.nn1(q, t)
+    i_p, d_p = knn.nn1_plain(q, t)
+    torch.cuda.synchronize()
+    # dist2 of the same target; rows where the two chose another target of
+    # (nearly) equal distance are judged by rows_valid
+    same = (i_k == i_p) & rows
+    rel = ((d_k - d_p).abs() / d_p.abs().clamp(min=1e-6))[same]
+    valid, excess = rows_valid(q, t, i_k, rows)
+    row = dict(kernel="nn1", case=what, n=q.shape[0], m=t.shape[0],
+               idx_agreement=int(same.sum()) / int(rows.sum()), idx_identical=bool(torch.equal(i_k, i_p)),
+               dist2_max_rel_err=float(rel.max()), max_abs_err=float((d_k - d_p)[rows].abs().max()),
+               rows_valid=valid, max_excess_eps_s=excess)
+    require(row["idx_agreement"] > NN1_MIN_AGREEMENT, f"nn1 {what}: idx agreement {row['idx_agreement']}")
+    require(row["dist2_max_rel_err"] <= NN1_DIST_RTOL, f"nn1 {what}: dist2 rel err {row['dist2_max_rel_err']}")
+    require(valid == 1.0, f"nn1 {what}: {1 - valid} of rows choose a farther target than the bound allows")
+    return row
+
+
+def check_knn(knn, q, t, rows, what: str) -> dict:
+    """knn_select kernel vs its plain twin and the exact check."""
+    import torch
+
+    i_k, d_k = knn.knn_select(q, t, K_NEIGHBOURS)
+    i_p, d_p = knn.knn_select_plain(q, t, K_NEIGHBOURS)
+    torch.cuda.synchronize()
+    same = (i_k.sort(1).values == i_p.sort(1).values).all(1)[rows]
+    valid, excess = rows_valid(q, t, i_k, rows)
+    row = dict(kernel="knn_select", case=what, n=q.shape[0], m=t.shape[0], k=K_NEIGHBOURS,
+               rows_identical_sets=int(same.sum()) / same.numel(), idx_identical=bool(torch.equal(i_k, i_p)),
+               max_abs_err=float((d_k - d_p)[rows].abs().max()), rows_valid=valid, max_excess_eps_s=excess,
+               sorted_ascending=bool((d_k[:, 1:] >= d_k[:, :-1]).all()))
+    require(row["rows_identical_sets"] >= KNN_MIN_IDENTICAL_SETS,
+            f"knn_select {what}: identical sets on only {row['rows_identical_sets']} of rows")
+    require(valid == 1.0, f"knn_select {what}: {1 - valid} of rows hold a farther neighbour than the bound allows")
+    require(row["sorted_ascending"], f"knn_select {what}: output not sorted")
+    return row
+
+
+def bench_configs() -> tuple:
+    """bench.py:142-151: the main path's prefilter and odometry configs."""
+    from hdl_graph_slam_tpu_torch.core.config import OdometryConfig, PrefilterConfig, RegistrationConfig
+
+    pf_cfg = PrefilterConfig(downsample_resolution=0.2, outlier_removal_method="NONE")
+    odo_cfg = OdometryConfig(keyframe_delta_trans=2.0, keyframe_delta_time=1e9,
+                             registration=RegistrationConfig(reg_reassoc_displacement=0.1))
+    return pf_cfg, odo_cfg
+
+
+def main_path(scans) -> tuple:
+    """The main path as bench.py drives it, on cuda: an OdometryWindow that
+    filters to N_KERNEL rows, the first scan's cloud for its initial state,
+    and the other scans stacked at the raw capacity with 0.1 s stamps.
+    Returns (win, first, xyz, mask, stamps)."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
+    from hdl_graph_slam_tpu_torch.frontend import OdometryWindow
+    from hdl_graph_slam_tpu_torch.frontend.window import stack_scans
+    from hdl_graph_slam_tpu_torch.utils.course import BENCH_RAW_CAPACITY
+
+    pf_cfg, odo_cfg = bench_configs()
+    win = OdometryWindow(odo_cfg, prefilter_cfg=pf_cfg, out_capacity=N_KERNEL, device="cuda")
+    xyz, mask = stack_scans(scans[1:], capacity=BENCH_RAW_CAPACITY)
+    stamps = (0.1 * np.arange(1, len(scans))).astype(np.float32)
+    first = cloudlib.from_numpy(scans[0], capacity=BENCH_RAW_CAPACITY, device="cuda")
+    return win, first, *(torch.from_numpy(a).to("cuda") for a in (xyz, mask, stamps))
+
+
+def drive_window(win, first, xyz, mask, stamps) -> tuple:
+    """Initialise the window's state from ``first`` and run it over the
+    frames; the host clock runs from the start of the run to the poses'
+    copy to the host. Returns (state0, poses as numpy, status, seconds)."""
+    import torch
+
+    state0 = win.init_state(0.0, first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, odoms, status = win.run(state0, xyz, mask, stamps)
+    odoms = odoms.cpu().numpy()
+    return state0, odoms, status, time.perf_counter() - t0
 
 
 def profile_frames(win, state0, xyz, mask, stamps, n: int, main_s_per_frame: float) -> dict:
@@ -142,12 +299,18 @@ def profile_frames(win, state0, xyz, mask, stamps, n: int, main_s_per_frame: flo
             end = b
     def dev_us(k):
         return getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
-    top = sorted((k for k in prof.key_averages() if dev_us(k) > 0), key=dev_us, reverse=True)[:12]
+    averages = [k for k in prof.key_averages() if dev_us(k) > 0]
+    top = sorted(averages, key=dev_us, reverse=True)[:12]
+    port = [k for k in averages if "nn1_kernel" in k.key or "knn_select_kernel" in k.key]
     return dict(phase="profile", frames=n, wall_s=wall, device_busy_s=busy * 1e-6,
+                device_busy_ms_per_frame=busy * 1e-3 / n,
                 device_idle_share_profiled=1.0 - busy * 1e-6 / wall,
                 device_idle_share_unprofiled=1.0 - busy * 1e-6 / n / main_s_per_frame,
                 device_ops_per_frame=len(spans) / n,
-                top_device=[dict(name=k.key[:80], calls=k.count, total_ms=dev_us(k) * 1e-3) for k in top])
+                top_device=[dict(name=k.key[:80], calls=k.count, total_ms=dev_us(k) * 1e-3,
+                                 mean_us=dev_us(k) / max(k.count, 1)) for k in top],
+                port_kernels=[dict(name=k.key[:80], calls=k.count, total_ms=dev_us(k) * 1e-3,
+                                   mean_us=dev_us(k) / max(k.count, 1)) for k in port])
 
 
 def main(argv=None) -> int:
@@ -164,9 +327,7 @@ def main(argv=None) -> int:
     import hdl_graph_slam_tpu_torch  # noqa: F401  (sets the precision policy)
     from hdl_graph_slam_tpu_torch import kernels
     from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
-    from hdl_graph_slam_tpu_torch.core.config import OdometryConfig, PrefilterConfig, RegistrationConfig
-    from hdl_graph_slam_tpu_torch.frontend import OdometryWindow, Prefilter
-    from hdl_graph_slam_tpu_torch.frontend.window import stack_scans
+    from hdl_graph_slam_tpu_torch.frontend import Prefilter
     from hdl_graph_slam_tpu_torch.ops import knn
     from hdl_graph_slam_tpu_torch.utils.course import BENCH_FRAMES, BENCH_RAW_CAPACITY, BENCH_STEP, make_course
 
@@ -199,10 +360,7 @@ def main(argv=None) -> int:
     emit(dict(phase="course", frames=BENCH_FRAMES, seed=SEED, seconds=time.perf_counter() - t0,
               raw_points_mean=float(np.mean([s.shape[0] for s in scans]))))
 
-    # bench.py:142-151
-    pf_cfg = PrefilterConfig(downsample_resolution=0.2, outlier_removal_method="NONE")
-    odo_cfg = OdometryConfig(keyframe_delta_trans=2.0, keyframe_delta_time=1e9,
-                             registration=RegistrationConfig(reg_reassoc_displacement=0.1))
+    pf_cfg, _ = bench_configs()
 
     # -- 3. kernels ---------------------------------------------------------
     pf_gpu = Prefilter(pf_cfg, out_capacity=N_KERNEL, device="cuda")
@@ -237,57 +395,54 @@ def main(argv=None) -> int:
     }
     kres = {}
     for case, inp in cases.items():
-        q, t, valid = inp["nn1"]
-        i_k, d_k = knn.nn1(q, t)
-        i_p, d_p = knn.nn1_plain(q, t)
-        torch.cuda.synchronize()
-        agree = float((i_k == i_p).double().mean())
-        rows = valid
-        rel = ((d_k - d_p).abs() / d_p.abs().clamp(min=1e-6))[rows]
-        row = dict(phase="kernel", kernel="nn1", case=case, n=q.shape[0], m=t.shape[0],
-                   idx_agreement=agree, dist2_max_rel_err=float(rel.max()),
-                   max_abs_err=float((d_k - d_p)[rows].abs().max()),
-                   kernel_ms=time_ms(lambda: knn.nn1(q, t)), plain_ms=time_ms(lambda: knn.nn1_plain(q, t), reps=5))
-        emit(row)
-        require(agree > NN1_MIN_AGREEMENT, f"nn1 {case}: idx agreement {agree}")
-        require(row["dist2_max_rel_err"] <= NN1_DIST_RTOL, f"nn1 {case}: dist2 rel err {row['dist2_max_rel_err']}")
-        kres[("nn1", case)] = row
+        for name, check, fn, plain in (("nn1", check_nn1, lambda q, t: knn.nn1(q, t), knn.nn1_plain),
+                                       ("knn_select", check_knn, lambda q, t: knn.knn_select(q, t, K_NEIGHBOURS),
+                                        lambda q, t: knn.knn_select_plain(q, t, K_NEIGHBOURS))):
+            q, t, valid = inp["knn" if name == "knn_select" else "nn1"]
+            row = dict(phase="kernel", **check(knn, q, t, valid, case))
+            row["kernel_ms"] = time_ms(lambda: fn(q, t))
+            row["device_ms"] = time_ms(lambda: fn(q, t), device_only=True)
+            row["host_ms"] = host_ms(lambda: fn(q, t))
+            row["plain_ms"] = time_ms(lambda: plain(q, t), reps=5)
+            row["launch"] = knn.launch_info(name, q.shape[0], t.shape[0])
+            emit(row)
+            kres[(name, case)] = row
 
-        q, t, valid = inp["knn"]
-        i_k, d_k = knn.knn_select(q, t, K_NEIGHBOURS)
-        i_p, d_p = knn.knn_select_plain(q, t, K_NEIGHBOURS)
-        torch.cuda.synchronize()
-        rows = valid.cpu().numpy()
-        same, tie_ok, err, tol = knn_rows_agree(q, t, i_k, i_p, rows)
-        row = dict(phase="kernel", kernel="knn_select", case=case, n=q.shape[0], m=t.shape[0], k=K_NEIGHBOURS,
-                   rows_identical_sets=same, rows_agree_up_to_ties=tie_ok, max_abs_err=err, tie_tol=tol,
-                   sorted_ascending=bool((d_k[:, 1:] >= d_k[:, :-1]).all()),
-                   kernel_ms=time_ms(lambda: knn.knn_select(q, t, K_NEIGHBOURS)),
-                   plain_ms=time_ms(lambda: knn.knn_select_plain(q, t, K_NEIGHBOURS), reps=5))
-        emit(row)
-        require(tie_ok == 1.0, f"knn_select {case}: {1 - tie_ok} of rows differ beyond ties")
-        require(same >= KNN_MIN_IDENTICAL_SETS, f"knn_select {case}: identical sets on only {same} of rows")
-        require(row["sorted_ascending"], f"knn_select {case}: output not sorted")
-        kres[("knn_select", case)] = row
+    # -- 3b. kernel edges: shapes and data the main path does not reach -----
+    def uniform(n, n_pad=0):
+        x = rng.uniform(-60.0, 60.0, (n, 3)).astype(np.float32)
+        x[n - n_pad:] = cloudlib.PAD_COORD
+        return torch.from_numpy(x).to(dev)
+
+    g = np.arange(16, dtype=np.float32)
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    lat = torch.from_numpy(lat[rng.permutation(np.r_[np.arange(len(lat)), rng.integers(0, len(lat), 1024)])]).to(dev)
+    edges = {
+        "n1_m20": (uniform(1), uniform(20)),
+        "n31_m8192": (uniform(31), uniform(8192)),
+        "n8192_m20000_multi_stage": (uniform(8192), uniform(20000)),
+        "n4096_m20_m_eq_k": (uniform(4096), uniform(20)),
+        "all_but_25_padded": (uniform(2048), uniform(8192, 8192 - 25)),
+        "lattice_duplicates": (lat, lat),
+    }
+    for case, (q, t) in edges.items():
+        rows = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+        for check in (check_nn1, check_knn):
+            row = dict(phase="kernel_edges", **check(knn, q, t, rows, case),
+                       launch=knn.launch_info("nn1" if check is check_nn1 else "knn_select", q.shape[0], t.shape[0]))
+            emit(row)
+            if case == "lattice_duplicates":  # exact ties: index for index
+                require(row["idx_identical"], f"{row['kernel']} {case}: indices differ from the plain twin")
 
     # -- 4. main path -------------------------------------------------------
-    win = OdometryWindow(odo_cfg, prefilter_cfg=pf_cfg, out_capacity=8192, device="cuda")
-    xyz_np, mask_np = stack_scans(scans[1:], capacity=BENCH_RAW_CAPACITY)
-    xyz = torch.from_numpy(xyz_np).to(dev)
-    mask = torch.from_numpy(mask_np).to(dev)
-    stamps = torch.from_numpy((0.1 * np.arange(1, BENCH_FRAMES + 1)).astype(np.float32)).to(dev)
-    first = cloudlib.from_numpy(scans[0], capacity=BENCH_RAW_CAPACITY, device="cuda")
+    win, first, xyz, mask, stamps = main_path(scans)
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     knn.nn1.launches = 0
     knn.knn_select.launches = 0
-    state0 = win.init_state(0.0, first)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, odoms, status = win.run(state0, xyz, mask, stamps)
-    odoms = odoms.cpu().numpy()
+    state0, odoms, status, dt = drive_window(win, first, xyz, mask, stamps)
     conv = status["converged"].cpu().numpy()
-    dt = time.perf_counter() - t0
     launches = {"nn1": knn.nn1.launches, "knn_select": knn.knn_select.launches}
 
     dist = BENCH_STEP * BENCH_FRAMES
@@ -331,9 +486,14 @@ def main(argv=None) -> int:
         line.append(dict(
             name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=sp["replaces"],
             launches=launches[name], launches_per_frame=launches[name] / (BENCH_FRAMES + 1),
-            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
+            host_ms=r["host_ms"],
+            plain_ms=r["plain_ms"],
             bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
             library_ms=None, shape=f"{n}x{n}" + (f", k={K_NEIGHBOURS}" if name == "knn_select" else ""),
+            resident_warps_per_sm=r["launch"]["resident_warps_per_sm"], grid_blocks=r["launch"]["grid_blocks"],
+            dynamic_smem_bytes=r["launch"]["dynamic_smem_bytes"],
+            registers_per_thread=r["launch"]["registers_per_thread"],
         ))
     emit({"kernels": line})
     print(smi, flush=True)

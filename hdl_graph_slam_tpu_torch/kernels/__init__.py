@@ -81,6 +81,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.hgs_nn1.restype = i
         lib.hgs_knn_select.argtypes = [p, i, p, i, i, p, p, p]
         lib.hgs_knn_select.restype = i
+        lib.hgs_knn_launch_info.argtypes = [i, i, i, p]
+        lib.hgs_knn_launch_info.restype = i
 
 
 def check(err: int, what: str) -> None:

@@ -19,10 +19,14 @@ Selection arithmetic (both versions): coordinates are centred on the bounding
 box of the valid targets (|x| < 1e5 on every axis) and ranked by
 d = |t|^2 - 2 q.t in float32, never TF32: NN selection precision is a
 correctness surface (package docstring). The lowest index wins ties.
+
+``launch_info`` reports the kernels' launch plans (grid, shared memory,
+occupancy) on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -48,6 +52,12 @@ def _check(name: str, query: torch.Tensor, target: torch.Tensor) -> None:
         raise ValueError(f"{name}: query on {query.device}, target on {target.device}")
     if query.shape[0] == 0 or target.shape[0] == 0:
         raise ValueError(f"{name}: empty query or target")
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current CUDA stream of x's device, as the raw pointer the C entry
+    points take (without building a torch.cuda.Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def nn1_plain(query: torch.Tensor, target: torch.Tensor, chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,7 +92,7 @@ def nn1(query: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.
     idx = torch.empty(n, dtype=torch.int32, device=query.device)
     dist2 = torch.empty(n, dtype=torch.float32, device=query.device)
     lib = kernels.load("knn")
-    stream = torch.cuda.current_stream(query.device).cuda_stream
+    stream = _stream(query)
     kernels.check(lib.hgs_nn1(query.data_ptr(), n, target.data_ptr(), m,
                               idx.data_ptr(), dist2.data_ptr(), stream), "nn1")
     nn1.launches += 1
@@ -95,27 +105,45 @@ nn1.launches = 0
 KNN_SELECT_K = 20  # the k the kernel is compiled for (GICP's correspondence_randomness)
 
 
+def _lex_key(d: torch.Tensor) -> torch.Tensor:
+    """int64 keys ordered as (d, column): the float32 bits mapped to an
+    order-preserving int32 in the high word, the column in the low word."""
+    bits = (d + 0.0).view(torch.int32).to(torch.int64)  # + 0.0 turns -0.0 into +0.0
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    cols = torch.arange(d.shape[-1], dtype=torch.int64, device=d.device)
+    return (ordered << 32) | cols
+
+
 def knn_select_plain(query: torch.Tensor, target: torch.Tensor, k: int,
                      chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch exact k-NN selection: the same centring and expansion
-    as the kernel, then ``torch.topk``. Returns idx (N,k) int32 and the
-    distances |t|^2 - 2 q.t + |q|^2 of the centred coordinates, ascending."""
+    as the kernel, then ``torch.topk`` on (distance, index) keys, so the
+    lowest index wins exact ties as in the kernel and ``lax.top_k``. Returns
+    idx (N,k) int32 and the distances |t|^2 - 2 q.t + |q|^2 of the centred
+    coordinates, ascending."""
     center = _bbox_center(target)
     tc = target - center
     t_norm2 = (tc * tc).sum(-1)
     idx, dist = [], []
     for qc in torch.split(query - center, chunk):
         d = -2.0 * (qc @ tc.T) + t_norm2
-        dk, cand = torch.topk(d, k, dim=-1, largest=False, sorted=True)
+        cand = torch.topk(_lex_key(d), k, dim=-1, largest=False, sorted=True).indices
         idx.append(cand.to(torch.int32))
-        dist.append(dk + (qc * qc).sum(-1, keepdim=True))
+        dist.append(d.gather(-1, cand) + (qc * qc).sum(-1, keepdim=True))
     return torch.cat(idx), torch.cat(dist)
 
 
 def knn_select(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The exact k nearest targets of each query: idx (N,k) int32 ordered by
     distance, with the expanded-form squared distances (N,k). Used where the
-    consumer needs the neighbour SET (GICP covariances)."""
+    consumer needs the neighbour SET (GICP covariances).
+
+    Speed, not the result, depends on the row order: the kernel scans the
+    targets of query row i from a little before target row i, wrapping
+    around. It is fast when the cloud is its own query in a spatially
+    coherent row order (GICP preprocessing passes the prefilter's voxel-key
+    output), since the true neighbours then come first; other orders pass
+    more candidates to its merges (PERF.md has both times)."""
     _check("knn_select", query, target)
     if not 0 < k <= target.shape[0]:
         raise ValueError(f"knn_select: k={k} with {target.shape[0]} targets")
@@ -130,7 +158,7 @@ def knn_select(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch
     idx = torch.empty((n, k), dtype=torch.int32, device=query.device)
     dist = torch.empty((n, k), dtype=torch.float32, device=query.device)
     lib = kernels.load("knn")
-    stream = torch.cuda.current_stream(query.device).cuda_stream
+    stream = _stream(query)
     kernels.check(lib.hgs_knn_select(query.data_ptr(), n, target.data_ptr(), m, k,
                                      idx.data_ptr(), dist.data_ptr(), stream), "knn_select")
     knn_select.launches += 1
@@ -138,6 +166,20 @@ def knn_select(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch
 
 
 knn_select.launches = 0
+
+
+def launch_info(kernel: str, n: int, m: int) -> dict:
+    """The launch plan the C entry point makes for ``kernel`` ("nn1" or
+    "knn_select") at n queries and m targets on the current CUDA device,
+    with the occupancy the runtime reports for it."""
+    which = {"nn1": 0, "knn_select": 1}[kernel]
+    out = (ctypes.c_int * 7)()
+    kernels.check(kernels.load("knn").hgs_knn_launch_info(which, n, m, ctypes.addressof(out)), f"{kernel} launch info")
+    keys = ("blocks_per_sm", "threads_per_block", "dynamic_smem_bytes", "grid_blocks", "registers_per_thread",
+            "stage_rows", "static_smem_bytes")
+    info = dict(zip(keys, out))
+    info["resident_warps_per_sm"] = info["blocks_per_sm"] * info["threads_per_block"] // 32
+    return info
 
 
 def knn(query: torch.Tensor, target: torch.Tensor, k: int, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:

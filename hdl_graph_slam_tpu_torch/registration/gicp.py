@@ -50,7 +50,7 @@ def preprocess(cloud: PointCloud, k: int = 20) -> GicpCloud:
     the 0.85-recall knn_approx, of which the exact set is a superset; its
     exact=True path and its CPU runs select the same sets."""
     xyz = cloud.valid_xyz()
-    idx, _ = knn.knn_select(xyz, xyz, k)
+    idx, _ = knn.knn_select(xyz, xyz, k)  # the cloud as its own query, in voxel-key order: the kernel's fast case
     nbrs = xyz[idx]  # (N, k, 3)
     centered = nbrs - nbrs.mean(dim=1, keepdim=True)
     covs = torch.einsum("nki,nkj->nij", centered, centered) / k

@@ -67,16 +67,21 @@ class TestNN1:
     """Bar of tests/test_ops.py TestPallasNN: index agreement > 0.999 and
     dist2 rtol 1e-4 (the expanded form can swap exact near-ties)."""
 
-    @pytest.mark.parametrize("n,m,n_pad", [(300, 400, 0), (300, 400, 37), (512, 2048, 200)])
+    @pytest.mark.parametrize("n,m,n_pad", [(300, 400, 0), (300, 400, 37), (512, 2048, 200),
+                                           (7, 20000, 0), (1000, 20000, 500)])
     def test_plain_matches_xla_and_pallas(self, n, m, n_pad):
+        """Against the XLA nn1 always and the Pallas kernel in interpret mode
+        up to 2048 targets (20000 targets is more than one shared-memory
+        stage of the CUDA kernel; interpret mode is too slow there)."""
         rng = np.random.default_rng(30 + n_pad)
         q = padded_cloud(rng, n, n_pad // 2)
         t = padded_cloud(rng, m, n_pad)
         i_t, d_t = knn.nn1(tt(q), tt(t))
         assert i_t.dtype == torch.int32
-        i_x, d_x = jknn.nn1(jnp.asarray(q), jnp.asarray(t))
-        i_p, d_p = nn1_pallas(jnp.asarray(q), jnp.asarray(t), interpret=True)
-        for i_ref, d_ref in ((i_x, d_x), (i_p, d_p)):
+        refs = [jknn.nn1(jnp.asarray(q), jnp.asarray(t))]
+        if m <= 2048:
+            refs.append(nn1_pallas(jnp.asarray(q), jnp.asarray(t), interpret=True))
+        for i_ref, d_ref in refs:
             assert np.mean(i_t.numpy() == np.asarray(i_ref)) > 0.999
             np.testing.assert_allclose(d_t.numpy(), np.asarray(d_ref), rtol=1e-4, atol=1e-5)
 
@@ -166,6 +171,26 @@ class TestKnnSelect:
         i_t, _ = knn.knn_select(tt(x), tt(x), 20)
         i_a, _ = jknn.knn_approx(jnp.asarray(x), jnp.asarray(x), 20, recall_target=0.85, exact_dists=False)
         assert rows_agree_up_to_ties(x, x, i_t.numpy(), np.asarray(i_a), 1e-4).all()
+
+    @pytest.mark.parametrize("k", [8, 20])
+    def test_lattice_ties_match_exact_knn_index_for_index(self, k):
+        """An integer lattice with exact duplicates: every distance is exact
+        in float32, so ties are exact and the lowest index must win them,
+        as lax.top_k does; idx and distances must equal the JAX exact k-NN's
+        element for element."""
+        rng = np.random.default_rng(45)
+        g = np.arange(8, dtype=np.float32)
+        x = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+        x = x[rng.permutation(np.r_[np.arange(len(x)), rng.integers(0, len(x), 128)])]
+        i_t, d_t = knn.knn_select(tt(x), tt(x), k)
+        i_j, d_j = jknn.knn(jnp.asarray(x), jnp.asarray(x), k)
+        np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+        np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+
+    def test_lex_key_orders_distance_then_index(self):
+        d = torch.tensor([[0.5, -1.0, 0.5, -0.0, 0.0, float("inf"), -3.0e12, 2.0]])
+        order = torch.argsort(knn._lex_key(d), dim=-1).tolist()[0]
+        assert order == [6, 1, 3, 4, 0, 2, 7, 5]  # -0.0 ties +0.0; ties by index
 
     def test_exact_knn_matches_jax(self):
         rng = np.random.default_rng(44)
