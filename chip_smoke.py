@@ -33,8 +33,35 @@ before the last line:
    the device idle share twice: over the profiled wall time (which the
    profiler inflates) and over the unprofiled main run's wall time per
    frame.
-5. The kernels line, the card's name and power limit, then the last line
-   {"ok": true, "device": {...}}.
+5. golden_course  benchmarks/golden_town.py's 601 ray-cast town scans, cast
+           in a process pool (the script's, not the package's).
+6. kernel_batched  the batched kernels (nn1_batched, knn_select_batched) at
+           the loop shapes: B = 8 distinct 4096-row keyframe clouds of that
+           course, and the same with ragged valid counts, against their plain
+           twins with the float64 row check on every row; B = 1 must equal
+           the unbatched entry point bit for bit. Also nn1 at the loop
+           association shape (8 x 4096 queries flattened against one 4096-row
+           target). Timed as the kernel phase.
+7. graph   the port's dense LM pose-graph optimize on a golden-sized
+           synthetic graph (94 poses, 2 laps, 12 loop edges) in float64 on
+           the card against the same code on the CPU; ms per iteration on
+           both and the device operations per iteration (profiled).
+8. slam    golden_town "base" through SlamPipeline.run_windowed on the
+           card: all 601 frames, keyframes, loop edges, ATE (optimized and
+           odometry keyframes, Umeyama-aligned as golden_town.py:179-180),
+           det/orth error, fps, the host wall of the odometry windows, the
+           optimize cycles and, within them, loop detection, information
+           matrices and the graph solve (the script wraps those methods), the
+           host syncs per optimize cycle, kernel launches on the path and the
+           peak device memory. Gates: det/orth < 1e-4 on every odometry pose,
+           >= 2 loop edges, optimized ATE below the odometry keyframes' ATE.
+           Then slam_profile: torch.profiler over one odometry stretch (48
+           frames of a fresh pipeline), one batched loop match and one graph
+           solve of the finished run: device busy time and idle share of each.
+9. The kernels line (all four entry points), the card's name and power
+   limit, then the last line {"ok": true, "device": {...}}.
+
+Phases run in that order, every one on the card.
 
 Without a GPU, or without the package beside it, the script exits non-zero
 and prints no result.
@@ -44,10 +71,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+import warnings
+from collections import defaultdict
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -80,6 +112,12 @@ KNN_MIN_IDENTICAL_SETS = 0.999
 # ~9 eps32 S; centring adds far less.
 ROW_ULPS = 10
 EPS32 = float(np.finfo(np.float32).eps)
+GOLDEN_B = 8  # loop candidates per batch (LoopDetectorConfig.max_candidates)
+# graph phase, card vs CPU: the same float64 LM; the Cholesky and the sums
+# round differently (cuSOLVER vs LAPACK), so accepts decided at the rounding
+# floor may differ by an iteration, at poses equal far below 1e-6 m
+GRAPH_POSE_ATOL = 1e-6
+GRAPH_CHI2_RTOL = 1e-9
 
 
 def emit(obj) -> None:
@@ -313,6 +351,513 @@ def profile_frames(win, state0, xyz, mask, stamps, n: int, main_s_per_frame: flo
                                    mean_us=dev_us(k) / max(k.count, 1)) for k in port])
 
 
+# -- golden_town -----------------------------------------------------------------
+
+_SCENE = None
+
+
+def _golden_scan(i: int) -> np.ndarray:
+    """Ray-cast golden_town frame i (a process-pool worker)."""
+    global _SCENE
+    if _SCENE is None:
+        sys.path.insert(0, HERE)
+        from hdl_graph_slam_tpu_torch.utils import course, lidar_sim
+
+        _SCENE = (*course.golden_town_scene(), course.golden_town_sensor_poses(), lidar_sim)
+    town, model, poses, lidar_sim = _SCENE
+    return lidar_sim.scan(town, poses[i], model, seed=i)
+
+
+def golden_scans(n: int, workers: int) -> list:
+    """The n golden_town scans, cast in ``workers`` spawned processes."""
+    with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(_golden_scan, range(n), chunksize=8))
+
+
+def check_batched(knn, kind: str, q, t, rows, what: str) -> dict:
+    """A batched kernel against its plain twin: the plain twin's gates of
+    check_nn1 / check_knn over the whole batch, and the float64 row check on
+    every row of every problem."""
+    import torch
+
+    if kind == "nn1":
+        (i_k, d_k), (i_p, d_p) = knn.nn1_batched(q, t), knn.nn1_batched_plain(q, t)
+    else:
+        (i_k, d_k), (i_p, d_p) = knn.knn_select_batched(q, t, K_NEIGHBOURS), knn.knn_select_batched_plain(
+            q, t, K_NEIGHBOURS)
+    torch.cuda.synchronize()
+    valid, excess = [], []
+    for b in range(q.shape[0]):
+        v, e = rows_valid(q[b], t[b], i_k[b], rows[b])
+        valid.append(v)
+        excess.append(e)
+    row = dict(kernel=f"{kind}_batched", case=what, batch=q.shape[0], n=q.shape[1], m=t.shape[1],
+               valid_rows=[int(r.sum()) for r in rows], idx_identical=bool(torch.equal(i_k, i_p)),
+               max_abs_err=float((d_k - d_p)[rows].abs().max()), rows_valid=min(valid), max_excess_eps_s=max(excess))
+    if kind == "nn1":
+        same = (i_k == i_p) & rows
+        row["idx_agreement"] = int(same.sum()) / int(rows.sum())
+        row["dist2_max_rel_err"] = float(((d_k - d_p).abs() / d_p.abs().clamp(min=1e-6))[same].max())
+        require(row["idx_agreement"] > NN1_MIN_AGREEMENT, f"nn1_batched {what}: idx agreement {row['idx_agreement']}")
+        require(row["dist2_max_rel_err"] <= NN1_DIST_RTOL, f"nn1_batched {what}: dist2 {row['dist2_max_rel_err']}")
+    else:
+        same = (i_k.sort(-1).values == i_p.sort(-1).values).all(-1)[rows]
+        row["rows_identical_sets"] = int(same.sum()) / same.numel()
+        row["sorted_ascending"] = bool((d_k[..., 1:] >= d_k[..., :-1]).all())
+        require(row["rows_identical_sets"] >= KNN_MIN_IDENTICAL_SETS,
+                f"knn_select_batched {what}: identical sets on {row['rows_identical_sets']} of rows")
+        require(row["sorted_ascending"], f"knn_select_batched {what}: output not sorted")
+    require(min(valid) == 1.0, f"{kind}_batched {what}: a row holds a farther neighbour than the bound allows")
+    return row
+
+
+def synthetic_graph(seed: int = 0):
+    """A golden_town-sized pose graph (port GraphBuilder): an anchor, 94
+    poses on two laps of a 35 m circle with noisy odometry edges
+    (information 100), 12 lap-2 -> lap-1 loop edges (information 400,
+    Huber), numpy noise from ``seed``."""
+    from hdl_graph_slam_tpu_torch.graph import GraphBuilder
+
+    rng = np.random.default_rng(seed)
+    n, per_lap = 94, 47
+
+    def pose(k):
+        a = 2.0 * np.pi * k / per_lap
+        T = np.eye(4)
+        T[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        T[:3, 3] = [35.0 * np.cos(a), 35.0 * np.sin(a), 0.0]
+        return T
+
+    def noise(t_sd, r_sd):
+        w = rng.normal(0.0, r_sd, 3)
+        th = np.linalg.norm(w)
+        K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        R = np.eye(3) + (np.sin(th) / max(th, 1e-12)) * K + ((1 - np.cos(th)) / max(th * th, 1e-24)) * K @ K
+        T = np.eye(4)
+        T[:3, :3] = R
+        T[:3, 3] = rng.normal(0.0, t_sd, 3)
+        return T
+
+    g = GraphBuilder()
+    anchor = g.add_se3_node(np.eye(4), fixed=True)
+    ids, est = [], pose(0)
+    for k in range(n):
+        if k:
+            rel = np.linalg.inv(pose(k - 1)) @ pose(k) @ noise(0.05, 0.005)
+            est = est @ rel
+        ids.append(g.add_se3_node(est))
+        if k:
+            g.add_se3_edge(ids[k], ids[k - 1], np.linalg.inv(rel), np.eye(6) * 100.0)
+    g.add_se3_edge(anchor, ids[0], np.linalg.inv(pose(0)), np.diag([0.1, 0.1, 0.001, 1, 1, 1]))
+    for k in rng.choice(np.arange(per_lap + 2, n), 12, replace=False):
+        rel = np.linalg.inv(pose(k)) @ pose(k - per_lap) @ noise(0.02, 0.002)
+        g.add_se3_edge(ids[k], ids[k - per_lap], rel, np.eye(6) * 400.0, kernel="Huber", kernel_delta=1.0)
+    return g
+
+
+def device_busy(prof, names=None) -> tuple:
+    """(device busy seconds, wall seconds) of a torch.profiler run, or of the
+    parts of it inside the user annotations called ``names``: the union of
+    the device intervals, against the union of those ranges (or the whole
+    trace)."""
+    from torch.autograd import DeviceType
+
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    events = list(prof.events())
+    # device work only: the profiler also mirrors each user annotation
+    # (record_function) onto the device timeline as one span over its kernels
+    dev = [(e.time_range.start, e.time_range.end) for e in events
+           if e.device_type == DeviceType.CUDA and not e.name.startswith("slam/")]
+    if names is None:
+        lo = min(e.time_range.start for e in events)
+        hi = max(e.time_range.end for e in events)
+        windows = [[lo, hi]]
+    else:
+        windows = union([(e.time_range.start, e.time_range.end) for e in events
+                         if e.name in names and e.device_type == DeviceType.CPU])
+    busy = 0.0
+    dev_u = union(dev)
+    for a, b in windows:
+        for c, d in dev_u:
+            busy += max(0.0, min(b, d) - max(a, c))
+    wall = sum(b - a for a, b in windows)
+    return busy * 1e-6, wall * 1e-6
+
+
+def top_device(prof, n: int) -> list:
+    """The n operations with the most device time in a profile."""
+    def dev_us(k):
+        return getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
+
+    averages = sorted((k for k in prof.key_averages() if dev_us(k) > 0 and not k.key.startswith("slam/")),
+                      key=dev_us, reverse=True)[:n]
+    return [dict(name=k.key[:80], calls=k.count, total_ms=dev_us(k) * 1e-3) for k in averages]
+
+
+class StageClock:
+    """Host wall time of wrapped methods (the script's instrumentation: the
+    package has none), kept in a utils.metrics.StageTimer. A wrapper marks
+    its span for the profiler, optionally synchronises the card at its end,
+    and optionally counts the host syncs made inside it (torch.cuda sync
+    debug mode)."""
+
+    def __init__(self):
+        from hdl_graph_slam_tpu_torch.utils.metrics import StageTimer
+
+        self.timer = StageTimer()
+        self.syncs = []
+        self.results = defaultdict(list)  # key -> return values kept by keep_result wrappers
+        self._undo = []
+
+    def wrap(self, owner, attr: str, key: str, sync: bool = False, count_syncs: bool = False,
+             keep_result: bool = False):
+        import torch
+
+        orig = getattr(owner, attr)
+        clock = self
+
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(f"slam/{key}"), clock.timer.span(key):
+                if count_syncs:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        torch.cuda.set_sync_debug_mode("warn")
+                        try:
+                            out = orig(*args, **kwargs)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                    clock.syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+                else:
+                    out = orig(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+                if keep_result:
+                    clock.results[key].append(out)
+            return out
+
+        setattr(owner, attr, wrapper)
+        self._undo.append((owner, attr, orig))
+
+    def restore(self):
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+        self._undo = []
+
+
+def slam_stages(clock: StageClock, count_syncs: bool) -> None:
+    from hdl_graph_slam_tpu_torch.backend import information_matrix, loop_detector
+    from hdl_graph_slam_tpu_torch.backend import slam as slam_mod
+    from hdl_graph_slam_tpu_torch.frontend import window
+
+    clock.wrap(window.OdometryWindow, "run_with_clouds", "odometry_window", sync=True)
+    clock.wrap(slam_mod.HdlGraphSlam, "optimize_cycle", "optimize_cycle", sync=True, count_syncs=count_syncs)
+    clock.wrap(loop_detector.LoopDetector, "detect", "loop_detection")
+    clock.wrap(information_matrix.InformationMatrixCalculator, "calc_information_matrices_batched",
+               "information_matrices")
+    clock.wrap(slam_mod, "graph_optimize", "graph_solve", keep_result=True)
+
+
+def golden_course_phase() -> dict:
+    """Cast golden_town's 601 scans in a process pool; the sensor poses
+    (truth) and the config come from utils/course.py."""
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    truth = course.golden_town_sensor_poses()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    scans = golden_scans(len(truth), workers)
+    emit(dict(phase="golden_course", frames=len(scans), workers=workers, seconds=time.perf_counter() - t0,
+              raw_points_mean=float(np.mean([x.shape[0] for x in scans]))))
+    return dict(scans=scans, truth=truth, cfg=course.golden_town_config())
+
+
+def kernel_batched_phase(knn, golden) -> dict:
+    """The batched kernels at the loop shapes against their plain twins."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
+    from hdl_graph_slam_tpu_torch.frontend import Prefilter
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    cfg = golden["cfg"]
+    pf = Prefilter(cfg.prefilter, out_capacity=course.GOLDEN_CLOUD_CAPACITY, device="cuda")
+    frames = np.linspace(0, len(golden["scans"]) - 4, GOLDEN_B).round().astype(int)
+
+    def cloud(i):
+        return pf(cloudlib.from_numpy(golden["scans"][i], capacity=course.GOLDEN_RAW_CAPACITY, device="cuda"))
+
+    tgts = [cloud(i) for i in frames]
+    srcs = [cloud(i + 3) for i in frames]
+    truth = golden["truth"]
+    # information-matrix shape: keyframe i+3 moved into keyframe i's frame
+    rel = torch.from_numpy(np.stack([np.linalg.inv(truth[i]) @ truth[i + 3] for i in frames])).float().to("cuda")
+    t = torch.stack([c.valid_xyz() for c in tgts])
+    smask = torch.stack([c.mask for c in srcs])
+    q = torch.stack([c.xyz for c in srcs]) @ rel[:, :3, :3].transpose(-1, -2) + rel[:, None, :3, 3]
+    q = torch.where(smask[..., None], q, cloudlib.PAD_COORD)
+    tmask = torch.stack([c.mask for c in tgts])
+    # ragged: problem b keeps only its first 4096 - 400 b rows valid
+    keep = torch.arange(t.shape[1], device=t.device)[None, :] < (t.shape[1] - 400 * torch.arange(GOLDEN_B, device=t.device))[:, None]
+    cases = {
+        "keyframes": (q, t, smask, tmask),
+        "ragged": (torch.where(keep[..., None], q, cloudlib.PAD_COORD), torch.where(keep[..., None], t, cloudlib.PAD_COORD),
+                   smask & keep, tmask & keep),
+    }
+    out = {}
+    for case, (qq, tt, qrows, trows) in cases.items():
+        for kind in ("nn1", "knn_select"):
+            qk, rows = (qq, qrows) if kind == "nn1" else (tt, trows)
+            row = dict(phase="kernel_batched", **check_batched(knn, kind, qk, tt, rows, case))
+            if kind == "nn1":
+                fn, plain = (lambda: knn.nn1_batched(qk, tt)), (lambda: knn.nn1_batched_plain(qk, tt))
+            else:
+                fn = lambda: knn.knn_select_batched(qk, tt, K_NEIGHBOURS)
+                plain = lambda: knn.knn_select_batched_plain(qk, tt, K_NEIGHBOURS)
+            row["valid_pairs"] = int(sum(int(r.sum()) * int(tr.sum()) for r, tr in zip(rows, trows)))
+            if case == "keyframes":
+                # B = 1 is the unbatched entry point, bit for bit
+                one = knn.nn1_batched(qk[:1], tt[:1]) if kind == "nn1" else knn.knn_select_batched(qk[:1], tt[:1], K_NEIGHBOURS)
+                ref = knn.nn1(qk[0], tt[0]) if kind == "nn1" else knn.knn_select(qk[0], tt[0], K_NEIGHBOURS)
+                row["b1_identical"] = bool(torch.equal(one[0][0], ref[0]) and torch.equal(one[1][0], ref[1]))
+                require(row["b1_identical"], f"{kind}_batched B=1 differs from the unbatched entry point")
+                row["kernel_ms"] = time_ms(fn)
+                row["device_ms"] = time_ms(fn, device_only=True)
+                row["host_ms"] = host_ms(fn)
+                row["plain_ms"] = time_ms(plain, reps=2, batches=3)
+                row["launch"] = knn.launch_info(kind, qk.shape[1], tt.shape[1], batch=qk.shape[0])
+            emit(row)
+            out[(kind, case)] = row
+
+    # loop association: the candidates' points flattened against one target
+    qa, ta = q.reshape(-1, 3).contiguous(), t[0].contiguous()
+    row = dict(phase="kernel_batched", **check_nn1(knn, qa, ta, smask.reshape(-1), "loop_association"))
+    row["kernel_ms"] = time_ms(lambda: knn.nn1(qa, ta))
+    row["device_ms"] = time_ms(lambda: knn.nn1(qa, ta), device_only=True)
+    row["launch"] = knn.launch_info("nn1", qa.shape[0], ta.shape[0])
+    emit(row)
+    return out
+
+
+def graph_phase() -> None:
+    """The port's optimize on the card against the same code on the CPU."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hdl_graph_slam_tpu_torch.graph import optimize
+
+    g = synthetic_graph(0)
+    # device operations per LM iteration: a 2-iteration solve minus a
+    # 1-iteration one (these solves also warm both paths up before timing)
+    ops = []
+    for its in (1, 2):
+        data = g.freeze(dtype=torch.float64, device="cuda")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            optimize(data, max_iterations=its)
+            torch.cuda.synchronize()
+        ops.append(sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
+    optimize(g.freeze(dtype=torch.float64, device="cpu"), max_iterations=1)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        data = g.freeze(dtype=torch.float64, device=dev)
+        t0 = time.perf_counter()
+        out, st = optimize(data, max_iterations=60)
+        poses = out.poses.cpu().numpy()
+        res[dev] = (poses, st, time.perf_counter() - t0)
+    (pc, sc, tc), (pp, sp, tp) = res["cuda"], res["cpu"]
+    row = dict(phase="graph", poses=len(g.poses), edges=g.num_edges, dof=int(6 * pc.shape[0]),
+               iterations_cuda=int(sc.iterations), iterations_cpu=int(sp.iterations),
+               chi2_before=float(sc.chi2_robust_before), chi2_after_cuda=float(sc.chi2_robust_after),
+               chi2_after_cpu=float(sp.chi2_robust_after), pose_max_abs_err=float(np.abs(pc - pp).max()),
+               seconds_cuda=tc, seconds_cpu=tp, ms_per_iteration_cuda=1e3 * tc / max(int(sc.iterations), 1),
+               ms_per_iteration_cpu=1e3 * tp / max(int(sp.iterations), 1), device_ops_per_iteration=ops[1] - ops[0],
+               pose_atol=GRAPH_POSE_ATOL, chi2_rtol=GRAPH_CHI2_RTOL)
+    emit(row)
+    require(row["pose_max_abs_err"] <= GRAPH_POSE_ATOL, f"graph: card vs CPU poses differ by {row['pose_max_abs_err']}")
+    require(abs(row["chi2_after_cuda"] - row["chi2_after_cpu"]) <= GRAPH_CHI2_RTOL * abs(row["chi2_after_cpu"]),
+            "graph: card vs CPU chi2 differ")
+    require(row["chi2_after_cuda"] < row["chi2_before"], "graph: the solve did not lower chi2")
+
+
+def slam_phase(knn, golden) -> dict:
+    """golden_town base through SlamPipeline.run_windowed on the card."""
+    import torch
+    from hdl_graph_slam_tpu_torch.io import trajectory as traj_io
+    from hdl_graph_slam_tpu_torch.pipeline import SlamPipeline
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    scans, truth, cfg = golden["scans"], golden["truth"], golden["cfg"]
+    frames = [(float(i), x, None) for i, x in enumerate(scans)]
+
+    def run(frames_):
+        pipe = SlamPipeline(cfg, cloud_capacity=course.GOLDEN_CLOUD_CAPACITY, device="cuda")
+        result = pipe.run_windowed(frames_, window=course.GOLDEN_WINDOW, raw_capacity=course.GOLDEN_RAW_CAPACITY)
+        torch.cuda.synchronize()
+        return pipe, result
+
+    clock = StageClock()
+    slam_stages(clock, count_syncs=True)
+    counters = (knn.nn1, knn.knn_select, knn.nn1_batched, knn.knn_select_batched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        pipe, result = run(frames)
+    finally:
+        clock.restore()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+
+    est = result.trajectory
+    kf_stamps = {st for st, _ in est}
+    odom_kf = [(st, T) for st, T in result.odometry_trajectory if st in kf_stamps]
+    ref = [(float(i), T) for i, T in enumerate(truth)]
+    Rs = np.stack([T[:3, :3] for _, T in result.odometry_trajectory])
+    n_kf = len(pipe.slam.keyframes)
+    n_loops = len(pipe.slam.graph.edge_rows["se3_se3"]) - (n_kf - 1) - 1  # chain + anchor
+    stats = pipe.slam.last_stats
+    graph_iterations = sum(int(st.iterations) for _, st in clock.results["graph_solve"])
+    row = dict(
+        phase="slam", frames=result.num_frames, keyframes=n_kf, loop_edges=n_loops,
+        ate_opt_m=traj_io.ate_rmse(est, ref, align=True), ate_odom_m=traj_io.ate_rmse(odom_kf, ref, align=True),
+        det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
+        orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
+        seconds=wall, fps=result.num_frames / wall,
+        host_wall_s={k: clock.timer.totals[k] for k in ("odometry_window", "optimize_cycle", "loop_detection",
+                                                        "information_matrices", "graph_solve")},
+        calls=dict(clock.timer.counts),
+        host_syncs_per_optimize_cycle=dict(mean=float(np.mean(clock.syncs)), max=int(max(clock.syncs)),
+                                           total=int(sum(clock.syncs)), cycles=len(clock.syncs)),
+        last_solve_iterations=int(stats.iterations) if stats is not None else None,
+        graph_iterations=graph_iterations,
+        graph_ms_per_iteration=1e3 * clock.timer.totals["graph_solve"] / max(graph_iterations, 1),
+        launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        reference=dict(source="PERF_JAX_REFERENCE.md:415-433 (JAX package on TPU)", ate_opt_m=0.0342,
+                       ate_odom_m=0.0847, keyframes=93, loop_edges=12),
+    )
+    emit(row)
+    require(row["frames"] == len(scans), f"slam ran {row['frames']} of {len(scans)} frames")
+    require(row["det_err"] < 1e-4 and row["orth_err"] < 1e-4, f"slam: rotation drift {row['det_err']}, {row['orth_err']}")
+    require(n_loops >= 2, f"slam: only {n_loops} loop edges")
+    require(row["ate_opt_m"] < row["ate_odom_m"], f"slam: optimized ATE {row['ate_opt_m']} >= odometry {row['ate_odom_m']}")
+    require(all(v >= 1 for v in launches.values()), f"slam path did not go through every kernel: {launches}")
+    slam_profile(pipe, frames)
+    return launches
+
+
+def slam_profile(pipe, frames) -> None:
+    """Device busy time and idle share of the slam path's stages, each
+    traced on its own with torch.profiler: 48 frames of a fresh pipeline
+    (odometry windows and their optimize cycles), one batched loop match of
+    the finished run (its last keyframe against its candidates) and one
+    graph solve of the finished graph."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hdl_graph_slam_tpu_torch.backend import slam as slam_mod
+    from hdl_graph_slam_tpu_torch.pipeline import SlamPipeline
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    slam = pipe.slam
+    out = dict(phase="slam_profile")
+
+    clock = StageClock()
+    slam_stages(clock, count_syncs=False)
+    try:
+        fresh = SlamPipeline(pipe.cfg, cloud_capacity=course.GOLDEN_CLOUD_CAPACITY, device="cuda")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fresh.run_windowed(frames[:48], window=course.GOLDEN_WINDOW, raw_capacity=course.GOLDEN_RAW_CAPACITY)
+            torch.cuda.synchronize()
+    finally:
+        clock.restore()
+    busy, wall = device_busy(prof)
+    out["first_48_frames"] = dict(device_busy_s=busy, wall_s=wall, device_idle_share=1.0 - busy / wall,
+                                  top_device=top_device(prof, 10))
+    for key in ("odometry_window", "optimize_cycle", "graph_solve"):
+        b, w = device_busy(prof, {f"slam/{key}"})
+        out["first_48_frames"][key] = dict(device_busy_s=b, wall_s=w, device_idle_share=(1.0 - b / w) if w else None)
+
+    det = slam.loop_detector
+    estimates = slam._current_estimates()
+    last = slam.keyframes[-1]
+    det.last_edge_accum_distance = 0.0  # lift the min_edge_interval gate for this one match
+    cand = det.find_candidates(slam.keyframes, last, estimates)
+    if cand:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            det._match(slam.keyframes, cand, last, estimates)
+            torch.cuda.synchronize()
+        busy, wall = device_busy(prof)
+        out["loop_match"] = dict(candidates=len(cand), device_busy_s=busy, wall_s=wall,
+                                 device_idle_share=1.0 - busy / wall)
+    data = slam.graph.freeze(dtype=torch.float64, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, st = slam_mod.graph_optimize(data, max_iterations=pipe.cfg.backend.g2o_solver_num_iterations)
+        torch.cuda.synchronize()
+    busy, wall = device_busy(prof)
+    out["graph_solve"] = dict(iterations=int(st.iterations), dof=data.num_dof, device_busy_s=busy, wall_s=wall,
+                              device_idle_share=1.0 - busy / wall)
+    emit(out)
+
+
+def kernels_line(kres, bres, launches, peak_flops) -> list:
+    """One entry per kernel entry point measured in this run."""
+    from hdl_graph_slam_tpu_torch.utils.course import BENCH_FRAMES
+
+    line = []
+    n = N_KERNEL
+    spec = {
+        "nn1": dict(replaces="hdl_graph_slam_tpu/ops/pallas_nn.py:61 (nn1_pallas; pallas_call :95)",
+                    out_bytes=n * 8),
+        "knn_select": dict(replaces="hdl_graph_slam_tpu/ops/knn.py:130 (knn_approx, lax.approx_min_k)",
+                           out_bytes=n * K_NEIGHBOURS * 8),
+    }
+    for name, sp in spec.items():
+        r = kres[(name, "course")]
+        ops_s = n * n * OPS_PER_PAIR / peak_flops
+        bytes_s = (2 * n * 12 + sp["out_bytes"]) / HBM_BYTES_PER_S
+        line.append(dict(
+            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=sp["replaces"],
+            launches=launches["main"][name], launches_slam=launches["slam"][name],
+            launches_per_frame=launches["main"][name] / (BENCH_FRAMES + 1),
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
+            host_ms=r["host_ms"], plain_ms=r["plain_ms"],
+            bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
+            library_ms=None, shape=f"{n}x{n}" + (f", k={K_NEIGHBOURS}" if name == "knn_select" else ""),
+            resident_warps_per_sm=r["launch"]["resident_warps_per_sm"], grid_blocks=r["launch"]["grid_blocks"],
+            dynamic_smem_bytes=r["launch"]["dynamic_smem_bytes"],
+            registers_per_thread=r["launch"]["registers_per_thread"],
+        ))
+    for kind, replaces in (("nn1", "hdl_graph_slam_tpu/ops/pallas_nn.py:61 (nn1_pallas; pallas_call :95) under "
+                                   "jax.vmap, backend/information_matrix.py:105-108"),
+                           ("knn_select", "hdl_graph_slam_tpu/ops/knn.py:130 (knn_approx) under jax.vmap, "
+                                          "backend/loop_detector.py:244,281")):
+        r = bres[(kind, "keyframes")]
+        b, nq, m = r["batch"], r["n"], r["m"]
+        # the work this run's data needs: valid query x valid target pairs
+        ops_s = r["valid_pairs"] * OPS_PER_PAIR / peak_flops
+        out_bytes = b * nq * (8 if kind == "nn1" else 8 * K_NEIGHBOURS)
+        bytes_s = (b * (nq + m) * 12 + out_bytes) / HBM_BYTES_PER_S
+        line.append(dict(
+            name=f"{kind}_batched", route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=replaces,
+            launches=launches["slam"][f"{kind}_batched"],
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
+            host_ms=r["host_ms"], plain_ms=r["plain_ms"],
+            bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
+            library_ms=None, shape=f"B={b} x {nq}x{m}" + (f", k={K_NEIGHBOURS}" if kind == "knn_select" else ""),
+            resident_warps_per_sm=r["launch"]["resident_warps_per_sm"], grid_blocks_per_problem=r["launch"]["grid_blocks"],
+            dynamic_smem_bytes=r["launch"]["dynamic_smem_bytes"],
+            registers_per_thread=r["launch"]["registers_per_thread"],
+        ))
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true", help="trace 16 frames of the main path with torch.profiler")
@@ -354,6 +899,7 @@ def main(argv=None) -> int:
                  ptxas=kernels.build_info["knn"]["ptxas"])
     emit(build)
 
+    kres, launches = {}, {}
     # -- course (host ray casting) ----------------------------------------
     t0 = time.perf_counter()
     scans = make_course(BENCH_FRAMES, BENCH_STEP, seed=SEED)
@@ -393,7 +939,6 @@ def main(argv=None) -> int:
         "uniform": dict(nn1=(uq, ut, torch.arange(N_KERNEL, device=dev) < N_KERNEL - n_pad),
                         knn=(ut, ut, torch.arange(N_KERNEL, device=dev) < N_KERNEL - n_pad)),
     }
-    kres = {}
     for case, inp in cases.items():
         for name, check, fn, plain in (("nn1", check_nn1, lambda q, t: knn.nn1(q, t), knn.nn1_plain),
                                        ("knn_select", check_knn, lambda q, t: knn.knn_select(q, t, K_NEIGHBOURS),
@@ -443,7 +988,7 @@ def main(argv=None) -> int:
     knn.knn_select.launches = 0
     state0, odoms, status, dt = drive_window(win, first, xyz, mask, stamps)
     conv = status["converged"].cpu().numpy()
-    launches = {"nn1": knn.nn1.launches, "knn_select": knn.knn_select.launches}
+    launches["main"] = {"nn1": knn.nn1.launches, "knn_select": knn.knn_select.launches}
 
     dist = BENCH_STEP * BENCH_FRAMES
     Rs = odoms[:, :3, :3].astype(np.float64)
@@ -454,7 +999,7 @@ def main(argv=None) -> int:
         keyframes=int(status["keyframe_switched"].sum()),
         det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
         orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
-        launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches["main"], peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
     emit(main_row)
     # bench.py:196-212
@@ -463,39 +1008,26 @@ def main(argv=None) -> int:
     require(main_row["converged_fraction"] > 0.9, f"only {main_row['converged_fraction']:.0%} of frames converged")
     require(main_row["det_err"] < 1e-4, f"det(R) drift {main_row['det_err']:.2e}")
     require(main_row["orth_err"] < 1e-4, f"orthogonality error {main_row['orth_err']:.2e}")
-    require(launches["knn_select"] >= BENCH_FRAMES and launches["nn1"] >= BENCH_FRAMES,
-            f"main path did not go through the kernels: {launches}")
+    require(launches["main"]["knn_select"] >= BENCH_FRAMES and launches["main"]["nn1"] >= BENCH_FRAMES,
+            f"main path did not go through the kernels: {launches['main']}")
 
     if args.profile:
         emit(profile_frames(win, state0, xyz, mask, stamps, 16, dt / BENCH_FRAMES))
 
-    # -- 5. kernels line ------------------------------------------------------
-    n = N_KERNEL
-    pairs = n * n
-    spec = {
-        "nn1": dict(replaces="hdl_graph_slam_tpu/ops/pallas_nn.py:61 (nn1_pallas; pallas_call :95)",
-                    out_bytes=n * 8),
-        "knn_select": dict(replaces="hdl_graph_slam_tpu/ops/knn.py:130 (knn_approx, lax.approx_min_k)",
-                           out_bytes=n * K_NEIGHBOURS * 8),
-    }
-    line = []
-    for name, sp in spec.items():
-        r = kres[(name, "course")]
-        ops_s = pairs * OPS_PER_PAIR / peak_flops
-        bytes_s = (2 * n * 12 + sp["out_bytes"]) / HBM_BYTES_PER_S
-        line.append(dict(
-            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=sp["replaces"],
-            launches=launches[name], launches_per_frame=launches[name] / (BENCH_FRAMES + 1),
-            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
-            host_ms=r["host_ms"],
-            plain_ms=r["plain_ms"],
-            bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
-            library_ms=None, shape=f"{n}x{n}" + (f", k={K_NEIGHBOURS}" if name == "knn_select" else ""),
-            resident_warps_per_sm=r["launch"]["resident_warps_per_sm"], grid_blocks=r["launch"]["grid_blocks"],
-            dynamic_smem_bytes=r["launch"]["dynamic_smem_bytes"],
-            registers_per_thread=r["launch"]["registers_per_thread"],
-        ))
-    emit({"kernels": line})
+    # -- 5. golden_town course (host ray casting in a process pool) ----------
+    golden = golden_course_phase()
+
+    # -- 6. batched kernels at the loop shapes --------------------------------
+    bres = kernel_batched_phase(knn, golden)
+
+    # -- 7. pose graph, card vs CPU ---------------------------------------------
+    graph_phase()
+
+    # -- 8. golden_town SLAM on the card ---------------------------------------------
+    launches["slam"] = slam_phase(knn, golden)
+
+    # -- 9. kernels line ------------------------------------------------------
+    emit({"kernels": kernels_line(kres, bres, launches, peak_flops)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

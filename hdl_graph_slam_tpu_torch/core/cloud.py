@@ -40,8 +40,9 @@ class PointCloud:
         return self.mask.sum(dtype=torch.int32)
 
     def valid_xyz(self) -> torch.Tensor:
-        """xyz with padding rows forced to the sentinel coordinate."""
-        return torch.where(self.mask[:, None], self.xyz, PAD_COORD)
+        """xyz with padding rows forced to the sentinel coordinate (with or
+        without a leading batch)."""
+        return torch.where(self.mask[..., None], self.xyz, PAD_COORD)
 
     def to_numpy(self) -> np.ndarray:
         """The valid points as a dense (count, 3) numpy array."""

@@ -79,6 +79,16 @@
 // per warp step, 8 bytes per pair), and the merges, whose shuffles queue
 // behind those loads; the warps with the most merges finish last.
 //
+// Batches. Both kernels take a batch of independent problems in the grid's y
+// dimension: block (x, b) works on query set b against target set b (q and t
+// offset by b * n and b * m rows), stages that target and centres it on its
+// own bounding box. gridDim.x shrinks so that gridDim.x * B stays near the
+// persistent grid's size (at B = 8 x 4096 rows, 16 blocks per cloud). The
+// unbatched entry points launch the same kernels with gridDim.y = 1. The
+// batch is for sets whose targets differ (the keyframe-pair fitness scores,
+// the loop candidates' own covariances); callers with one shared target
+// flatten their queries into one unbatched call instead.
+//
 // Distances are fp32 FMA chains, never TF32.
 
 #include <cuda_runtime.h>
@@ -215,6 +225,10 @@ nn1_kernel(const float* __restrict__ q, int n, const float* __restrict__ t, int 
   float4* cloud = smem;
   float2* part = reinterpret_cast<float2*>(smem + stage_rows);  // [kWarps][kNnChunk]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  q += 3 * (size_t)blockIdx.y * n;  // this block's problem of the batch
+  t += 3 * (size_t)blockIdx.y * m;
+  idx_out += (size_t)blockIdx.y * n;
+  dist2_out += (size_t)blockIdx.y * n;
 
   float c[3];
   stage_first(t, m, stage_rows, cloud, s_bb, c);
@@ -458,6 +472,10 @@ knn_select_kernel(const float* __restrict__ q, int n, const float* __restrict__ 
   __shared__ int s_bb[6];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned lt_mask = (1u << lane) - 1u;
+  q += 3 * (size_t)blockIdx.y * n;  // this block's problem of the batch
+  t += 3 * (size_t)blockIdx.y * m;
+  idx_out += (size_t)blockIdx.y * n * K;
+  dist_out += (size_t)blockIdx.y * n * K;
   float4* cloud = smem;
   float2* buf = reinterpret_cast<float2*>(smem + stage_rows) + warp * (kSelQ * 32);  // [kSelQ][32]
 
@@ -522,11 +540,12 @@ std::mutex g_plans_mu;
 std::map<std::tuple<int, const void*, int>, std::pair<Plan, int>> g_plans;  // -> (plan, SMs)
 
 // Launch plan of `fn` on the current device for m targets and `work` block
-// tasks: the stage is the whole cloud when it fits the block's shared memory
-// beside `scratch` bytes (and kRowsPerThread rows per thread), else the
-// largest number of rows that does; the grid is persistent, at most the SMs
-// times the resident blocks per SM.
-cudaError_t make_plan(const void* fn, int threads, int scratch, int m, int work, Plan* p) {
+// tasks per problem of a batch of `batch`: the stage is the whole cloud when
+// it fits the block's shared memory beside `scratch` bytes (and
+// kRowsPerThread rows per thread), else the largest number of rows that
+// does; the grid is persistent, at most the SMs times the resident blocks per
+// SM over all problems (gridDim.x = that over the batch, at least 1).
+cudaError_t make_plan(const void* fn, int threads, int scratch, int m, int work, int batch, Plan* p) {
   int dev;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -558,20 +577,23 @@ cudaError_t make_plan(const void* fn, int threads, int scratch, int m, int work,
     it = g_plans.emplace(std::make_tuple(dev, fn, rows), std::make_pair(q, sms)).first;
   }
   *p = it->second.first;
-  const int slots = it->second.second * p->blocks_per_sm;
+  int slots = it->second.second * p->blocks_per_sm / batch;
+  if (slots < 1) slots = 1;
   p->grid = work < slots ? work : slots;
   return cudaSuccess;
 }
 
-cudaError_t plan_nn1(int n, int m, Plan* p) {
-  return make_plan((const void*)nn1_kernel, kThreads, kNnScratch, m, (n + kNnChunk - 1) / kNnChunk, p);
+cudaError_t plan_nn1(int n, int m, int batch, Plan* p) {
+  return make_plan((const void*)nn1_kernel, kThreads, kNnScratch, m, (n + kNnChunk - 1) / kNnChunk, batch, p);
 }
 
-cudaError_t plan_knn_select(int n, int m, Plan* p) {
+cudaError_t plan_knn_select(int n, int m, int batch, Plan* p) {
   const int groups = (n + kSelQ - 1) / kSelQ;
   return make_plan((const void*)knn_select_kernel<kK>, kThreads, kSelScratch, m,
-                   (groups + kWarps - 1) / kWarps, p);
+                   (groups + kWarps - 1) / kWarps, batch, p);
 }
+
+constexpr int kMaxBatch = 65535;  // gridDim.y
 
 // A failed runtime call leaves its error as the last error; clear it so the
 // next launch's check does not report it again.
@@ -588,9 +610,21 @@ extern "C" {
 int hgs_nn1(const float* q, int n, const float* t, int m, int* idx, float* dist2, void* stream) {
   if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t e = plan_nn1(n, m, &p);
+  const cudaError_t e = plan_nn1(n, m, 1, &p);
   if (e != cudaSuccess) return failed(e);
   nn1_kernel<<<p.grid, p.threads, p.smem, (cudaStream_t)stream>>>(q, n, t, m, p.stage_rows, idx, dist2);
+  return (int)cudaGetLastError();
+}
+
+// B problems: q (B, n, 3) against t (B, m, 3) -> idx, dist2 (B, n).
+int hgs_nn1_batched(const float* q, int batch, int n, const float* t, int m, int* idx, float* dist2,
+                    void* stream) {
+  if (n <= 0 || m <= 0 || batch <= 0 || batch > kMaxBatch) return (int)cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t e = plan_nn1(n, m, batch, &p);
+  if (e != cudaSuccess) return failed(e);
+  nn1_kernel<<<dim3(p.grid, batch), p.threads, p.smem, (cudaStream_t)stream>>>(q, n, t, m, p.stage_rows, idx,
+                                                                               dist2);
   return (int)cudaGetLastError();
 }
 
@@ -598,20 +632,34 @@ int hgs_nn1(const float* q, int n, const float* t, int m, int* idx, float* dist2
 int hgs_knn_select(const float* q, int n, const float* t, int m, int k, int* idx, float* dist, void* stream) {
   if (n <= 0 || k != kK || m < kK) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t e = plan_knn_select(n, m, &p);
+  const cudaError_t e = plan_knn_select(n, m, 1, &p);
   if (e != cudaSuccess) return failed(e);
   knn_select_kernel<kK><<<p.grid, p.threads, p.smem, (cudaStream_t)stream>>>(q, n, t, m, p.stage_rows, idx, dist);
   return (int)cudaGetLastError();
 }
 
-// The launch plan of kernel `which` (0 = nn1, 1 = knn_select) at (n, m) on the
-// current device: out = [resident blocks per SM, threads per block, dynamic
-// shared memory bytes, grid blocks, registers per thread, staged rows, static
-// shared memory bytes]. Returns a cudaError_t (0 = ok).
-int hgs_knn_launch_info(int which, int n, int m, int* out) {
-  if (n <= 0 || m <= 0 || (which != 0 && which != 1)) return (int)cudaErrorInvalidValue;
+// B problems: q (B, n, 3) against t (B, m, 3) -> idx, dist (B, n, k).
+int hgs_knn_select_batched(const float* q, int batch, int n, const float* t, int m, int k, int* idx, float* dist,
+                           void* stream) {
+  if (n <= 0 || k != kK || m < kK || batch <= 0 || batch > kMaxBatch) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t e = which == 0 ? plan_nn1(n, m, &p) : plan_knn_select(n, m, &p);
+  const cudaError_t e = plan_knn_select(n, m, batch, &p);
+  if (e != cudaSuccess) return failed(e);
+  knn_select_kernel<kK><<<dim3(p.grid, batch), p.threads, p.smem, (cudaStream_t)stream>>>(q, n, t, m, p.stage_rows,
+                                                                                          idx, dist);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan of kernel `which` (0 = nn1, 1 = knn_select) at (n, m) and a
+// batch of `batch` problems on the current device: out = [resident blocks per
+// SM, threads per block, dynamic shared memory bytes, grid blocks per
+// problem, registers per thread, staged rows, static shared memory bytes].
+// Returns a cudaError_t (0 = ok).
+int hgs_knn_launch_info_batched(int which, int batch, int n, int m, int* out) {
+  if (n <= 0 || m <= 0 || (which != 0 && which != 1) || batch <= 0 || batch > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t e = which == 0 ? plan_nn1(n, m, batch, &p) : plan_knn_select(n, m, batch, &p);
   if (e != cudaSuccess) return failed(e);
   const int v[7] = {p.blocks_per_sm, p.threads, p.smem, p.grid, p.regs, p.stage_rows, p.static_smem};
   for (int j = 0; j < 7; ++j) out[j] = v[j];

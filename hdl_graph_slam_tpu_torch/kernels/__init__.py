@@ -81,8 +81,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.hgs_nn1.restype = i
         lib.hgs_knn_select.argtypes = [p, i, p, i, i, p, p, p]
         lib.hgs_knn_select.restype = i
-        lib.hgs_knn_launch_info.argtypes = [i, i, i, p]
-        lib.hgs_knn_launch_info.restype = i
+        lib.hgs_nn1_batched.argtypes = [p, i, i, p, i, p, p, p]
+        lib.hgs_nn1_batched.restype = i
+        lib.hgs_knn_select_batched.argtypes = [p, i, i, p, i, i, p, p, p]
+        lib.hgs_knn_select_batched.restype = i
+        lib.hgs_knn_launch_info_batched.argtypes = [i, i, i, i, p]
+        lib.hgs_knn_launch_info_batched.restype = i
 
 
 def check(err: int, what: str) -> None:

@@ -11,6 +11,11 @@ plain PyTorch twin here:
   expanded-form distances). Exact selection is a superset of the 0.85 recall
   ``knn_approx`` guarantees.
 
+Both also have a batched form (``nn1_batched``, ``knn_select_batched``): B
+independent problems, each query set against its own target, in one launch
+(the batch is the kernels' grid y dimension). Callers whose B query sets
+share one target flatten them into one unbatched call instead.
+
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
@@ -168,13 +173,96 @@ def knn_select(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch
 knn_select.launches = 0
 
 
-def launch_info(kernel: str, n: int, m: int) -> dict:
+def _check_batched(name: str, query: torch.Tensor, target: torch.Tensor) -> None:
+    for what, x in (("query", query), ("target", target)):
+        if x.dtype != torch.float32 or x.ndim != 3 or x.shape[2] != 3:
+            raise ValueError(f"{name}: {what} must be (B, n, 3) float32, got {tuple(x.shape)} {x.dtype}")
+    if query.shape[0] != target.shape[0]:
+        raise ValueError(f"{name}: batch {query.shape[0]} of queries vs {target.shape[0]} of targets")
+    if query.device != target.device:
+        raise ValueError(f"{name}: query on {query.device}, target on {target.device}")
+    if 0 in query.shape[:2] or target.shape[1] == 0:
+        raise ValueError(f"{name}: empty batch, query or target")
+    if query.shape[0] > MAX_BATCH:
+        raise ValueError(f"{name}: batch {query.shape[0]} above {MAX_BATCH}")
+
+
+MAX_BATCH = 65535  # the kernels' grid y dimension
+
+
+def nn1_batched_plain(query: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``nn1_batched``: ``nn1_plain`` on each problem."""
+    out = [nn1_plain(q, t) for q, t in zip(query, target)]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
+def nn1_batched(query: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN of B independent problems in one launch: query (B,n,3)
+    against target (B,m,3), each problem centred on its own targets ->
+    idx (B,n) int32, dist2 (B,n). Row b equals ``nn1(query[b], target[b])``."""
+    _check_batched("nn1_batched", query, target)
+    if query.device.type == "cpu":
+        return nn1_batched_plain(query, target)
+    if query.device.type != "cuda":
+        raise ValueError(f"nn1_batched: unsupported device {query.device}")
+    query, target = query.contiguous(), target.contiguous()
+    b, n, m = query.shape[0], query.shape[1], target.shape[1]
+    idx = torch.empty((b, n), dtype=torch.int32, device=query.device)
+    dist2 = torch.empty((b, n), dtype=torch.float32, device=query.device)
+    lib = kernels.load("knn")
+    kernels.check(lib.hgs_nn1_batched(query.data_ptr(), b, n, target.data_ptr(), m,
+                                      idx.data_ptr(), dist2.data_ptr(), _stream(query)), "nn1_batched")
+    nn1_batched.launches += 1
+    return idx, dist2
+
+
+nn1_batched.launches = 0
+
+
+def knn_select_batched_plain(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``knn_select_batched``: ``knn_select_plain`` on each problem."""
+    out = [knn_select_plain(q, t, k) for q, t in zip(query, target)]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
+def knn_select_batched(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact k nearest targets of B independent problems in one launch:
+    query (B,n,3) against target (B,m,3) -> idx (B,n,k) int32 and the
+    expanded-form distances (B,n,k). Row b equals
+    ``knn_select(query[b], target[b], k)``; the same row-order remark holds
+    for its speed."""
+    _check_batched("knn_select_batched", query, target)
+    if not 0 < k <= target.shape[1]:
+        raise ValueError(f"knn_select_batched: k={k} with {target.shape[1]} targets")
+    if query.device.type == "cpu":
+        return knn_select_batched_plain(query, target, k)
+    if query.device.type != "cuda":
+        raise ValueError(f"knn_select_batched: unsupported device {query.device}")
+    if k != KNN_SELECT_K:
+        raise ValueError(f"knn_select_batched: the kernel is built for k={KNN_SELECT_K}, not {k}")
+    query, target = query.contiguous(), target.contiguous()
+    b, n, m = query.shape[0], query.shape[1], target.shape[1]
+    idx = torch.empty((b, n, k), dtype=torch.int32, device=query.device)
+    dist = torch.empty((b, n, k), dtype=torch.float32, device=query.device)
+    lib = kernels.load("knn")
+    kernels.check(lib.hgs_knn_select_batched(query.data_ptr(), b, n, target.data_ptr(), m, k,
+                                             idx.data_ptr(), dist.data_ptr(), _stream(query)), "knn_select_batched")
+    knn_select_batched.launches += 1
+    return idx, dist
+
+
+knn_select_batched.launches = 0
+
+
+def launch_info(kernel: str, n: int, m: int, batch: int = 1) -> dict:
     """The launch plan the C entry point makes for ``kernel`` ("nn1" or
-    "knn_select") at n queries and m targets on the current CUDA device,
-    with the occupancy the runtime reports for it."""
+    "knn_select") at n queries and m targets (per problem of a batch of
+    ``batch``) on the current CUDA device, with the occupancy the runtime
+    reports for it; ``grid_blocks`` is per problem."""
     which = {"nn1": 0, "knn_select": 1}[kernel]
     out = (ctypes.c_int * 7)()
-    kernels.check(kernels.load("knn").hgs_knn_launch_info(which, n, m, ctypes.addressof(out)), f"{kernel} launch info")
+    kernels.check(kernels.load("knn").hgs_knn_launch_info_batched(which, batch, n, m, ctypes.addressof(out)),
+                  f"{kernel} launch info")
     keys = ("blocks_per_sm", "threads_per_block", "dynamic_smem_bytes", "grid_blocks", "registers_per_thread",
             "stage_rows", "static_smem_bytes")
     info = dict(zip(keys, out))
@@ -209,11 +297,21 @@ def fitness_score(
 ) -> torch.Tensor:
     """PCL getFitnessScore (information_matrix_calculator.cpp:49-80): mean
     squared 1-NN distance of the transformed source into the target over
-    matches with dist <= max_range; +inf when no point matches."""
-    moved = source_xyz @ relpose[:3, :3].T + relpose[:3, 3]
-    moved = torch.where(source_mask[:, None], moved, 1.0e6)
-    _, d2 = nn1(moved, target_xyz)
+    matches with dist <= max_range; +inf when no point matches.
+
+    Batched over a leading dimension B of the source, its mask and relpose:
+    with a (M,3) target shared by all B the queries go to one ``nn1`` call,
+    with a (B,M,3) target (one per problem) to one ``nn1_batched`` call."""
+    moved = source_xyz @ relpose[..., :3, :3].transpose(-1, -2) + relpose[..., None, :3, 3]
+    moved = torch.where(source_mask[..., None], moved, 1.0e6)
+    if moved.ndim == 2:
+        _, d2 = nn1(moved, target_xyz)
+    elif target_xyz.ndim == 2:
+        _, d2 = nn1(moved.reshape(-1, 3), target_xyz)
+        d2 = d2.reshape(moved.shape[:-1])
+    else:
+        _, d2 = nn1_batched(moved, target_xyz)
     ok = source_mask & (d2 <= max_range)
-    nr = ok.sum()
-    total = torch.where(ok, d2, 0.0).sum()
+    nr = ok.sum(-1)
+    total = torch.where(ok, d2, 0.0).sum(-1)
     return torch.where(nr > 0, total / torch.clamp(nr, min=1), float("inf"))

@@ -12,6 +12,12 @@ the launch default).
 - Levenberg-Marquardt on SE(3) with Nielsen damping (base.lm_loop).
 
 The associate/linearize/cost reductions are plain PyTorch in this slice.
+
+Every function takes a leading batch on the source as well: that is the loop
+detector's form, B candidate sources (each its own k=20 query, one
+``knn_select_batched`` launch) aligned against one shared target (the B
+sources' 1-NN queries go to one ``nn1`` launch), with the LM semantics of
+``jax.vmap`` over ``align`` (base.lm_loop_batched).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from ..core import se3
 from ..core.cloud import PointCloud
 from ..ops import knn
 from ..ops.eig3 import plane_regularize
-from .base import AlignResult, lm_loop
+from .base import AlignResult, lm_loop, lm_loop_batched
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,18 +51,24 @@ def _regularize_covs_plane(covs: torch.Tensor) -> torch.Tensor:
 def preprocess(cloud: PointCloud, k: int = 20) -> GicpCloud:
     """Per-point regularized covariances from the k nearest neighbours
     (fast_gicp calculate_covariances; k = correspondence_randomness).
+    cloud.xyz is (N, 3), or (B, N, 3) for B clouds in one launch.
 
     The neighbour set is exact (knn_select). The JAX package's default uses
     the 0.85-recall knn_approx, of which the exact set is a superset; its
     exact=True path and its CPU runs select the same sets."""
     xyz = cloud.valid_xyz()
-    idx, _ = knn.knn_select(xyz, xyz, k)  # the cloud as its own query, in voxel-key order: the kernel's fast case
-    nbrs = xyz[idx]  # (N, k, 3)
-    centered = nbrs - nbrs.mean(dim=1, keepdim=True)
-    covs = torch.einsum("nki,nkj->nij", centered, centered) / k
+    # each cloud is its own query, in voxel-key order: the kernel's fast case
+    if xyz.ndim == 2:
+        idx, _ = knn.knn_select(xyz, xyz, k)
+        nbrs = xyz[idx]  # (N, k, 3)
+    else:
+        idx, _ = knn.knn_select_batched(xyz, xyz, k)
+        nbrs = xyz[torch.arange(xyz.shape[0], device=xyz.device)[:, None, None], idx.long()]  # (B, N, k, 3)
+    centered = nbrs - nbrs.mean(dim=-2, keepdim=True)
+    covs = torch.einsum("...ki,...kj->...ij", centered, centered) / k
     covs = _regularize_covs_plane(covs)
     eye = torch.eye(3, dtype=covs.dtype, device=covs.device)
-    covs = torch.where(cloud.mask[:, None, None], covs, eye)
+    covs = torch.where(cloud.mask[..., None, None], covs, eye)
     return GicpCloud(xyz=cloud.xyz, mask=cloud.mask, covs=covs)
 
 
@@ -91,37 +103,42 @@ class GicpCorr(NamedTuple):
     num: torch.Tensor  # () int32 valid count
 
 
+def _moved(T: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """T (..., 4, 4) applied to the points xyz (..., N, 3)."""
+    return xyz @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
 def _associate(T: torch.Tensor, src: GicpCloud, tgt: GicpCloud, max_corr_dist: float) -> GicpCorr:
-    """NN correspondences + Mahalanobis at pose T (fixed through LM trials)."""
-    R, t = T[:3, :3], T[:3, 3]
-    moved = src.xyz @ R.T + t
-    moved_q = torch.where(src.mask[:, None], moved, 1.0e6)
-    idx, d2 = knn.nn1(moved_q, torch.where(tgt.mask[:, None], tgt.xyz, 1.0e6))
+    """NN correspondences + Mahalanobis at pose T (fixed through LM trials).
+    All sources' queries go to one nn1 launch."""
+    moved_q = torch.where(src.mask[..., None], _moved(T, src.xyz), 1.0e6)
+    idx, d2 = knn.nn1(moved_q.reshape(-1, 3), torch.where(tgt.mask[:, None], tgt.xyz, 1.0e6))
+    idx, d2 = idx.reshape(src.mask.shape), d2.reshape(src.mask.shape)
     valid = src.mask & tgt.mask[idx] & (d2 < max_corr_dist * max_corr_dist)
-    RCA = R @ src.covs @ R.T
-    Mw = _inv3x3(tgt.covs[idx] + RCA) * valid.to(T.dtype)[:, None, None]
-    return GicpCorr(idx=idx, Mw=Mw, num=valid.sum(dtype=torch.int32))
+    R = T[..., None, :3, :3]
+    RCA = R @ src.covs @ R.transpose(-1, -2)
+    Mw = _inv3x3(tgt.covs[idx] + RCA) * valid.to(T.dtype)[..., None, None]
+    return GicpCorr(idx=idx, Mw=Mw, num=valid.sum(-1, dtype=torch.int32))
 
 
 def _linearize_at(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt: GicpCloud):
-    moved = src.xyz @ T[:3, :3].T + T[:3, 3]
-    e = tgt.xyz[corr.idx] - moved  # (N, 3)
+    moved = _moved(T, src.xyz)
+    e = tgt.xyz[corr.idx] - moved  # (..., N, 3)
     # J_i = d e / d [v, w] for the left-multiplied increment exp([v,w]) T:
     # e(delta) ~= e - v - w x (T a)  =>  J = [-I | skew(moved)]
-    skew = se3.hat(moved)  # (N, 3, 3)
+    skew = se3.hat(moved)  # (..., N, 3, 3)
     J = torch.cat([-torch.eye(3, dtype=T.dtype, device=T.device).expand(skew.shape), skew], dim=-1)
-    MJ = corr.Mw @ J  # (N, 3, 6)
-    H = torch.einsum("nji,njk->ik", J, MJ)
-    Me = (corr.Mw @ e[:, :, None])[..., 0]  # (N, 3)
-    b = torch.einsum("nji,nj->i", J, Me)
-    cost = (e * Me).sum()
+    MJ = corr.Mw @ J  # (..., N, 3, 6)
+    H = torch.einsum("...nji,...njk->...ik", J, MJ)
+    Me = (corr.Mw @ e[..., None])[..., 0]  # (..., N, 3)
+    b = torch.einsum("...nji,...nj->...i", J, Me)
+    cost = (e * Me).sum((-1, -2))
     return H, b, cost, corr.num
 
 
 def _cost_at(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt: GicpCloud) -> torch.Tensor:
-    moved = src.xyz @ T[:3, :3].T + T[:3, 3]
-    e = tgt.xyz[corr.idx] - moved
-    return (e * (corr.Mw @ e[:, :, None])[..., 0]).sum()
+    e = tgt.xyz[corr.idx] - _moved(T, src.xyz)
+    return (e * (corr.Mw @ e[..., None])[..., 0]).sum((-1, -2))
 
 
 def align(
@@ -136,12 +153,16 @@ def align(
 ) -> AlignResult:
     """Align source onto target starting from ``guess`` (4x4), following
     fast_gicp's LM loop (base.lm_loop). reassoc_displacement > 0 carries the
-    correspondences across iterations within that displacement budget."""
+    correspondences across iterations within that displacement budget.
+
+    With a leading batch on the source and guess (B, 4, 4), the B sources
+    align against the one target (base.lm_loop_batched): an AlignResult with
+    a leading batch, whose row b is ``align(tgt, src[b], guess[b])`` up to
+    float32 summation order."""
     r_max = None
     if reassoc_displacement:
-        r_max = torch.sqrt(torch.where(src.mask, (src.xyz * src.xyz).sum(-1), 0.0).amax())
-    return lm_loop(
-        associate=lambda T: _associate(T, src, tgt, max_corr_dist),
+        r_max = torch.sqrt(torch.where(src.mask, (src.xyz * src.xyz).sum(-1), 0.0).amax(-1))
+    kw = dict(
         linearize_at=lambda T, corr: _linearize_at(T, corr, src, tgt),
         cost_at=lambda T, corr: _cost_at(T, corr, src, tgt),
         guess=guess,
@@ -151,3 +172,11 @@ def align(
         reassoc_displacement=reassoc_displacement,
         r_max=r_max,
     )
+    if guess.ndim == 2:
+        return lm_loop(associate=lambda T: _associate(T, src, tgt, max_corr_dist), **kw)
+
+    def associate_rows(T, rows):
+        part = GicpCloud(xyz=src.xyz[rows], mask=src.mask[rows], covs=src.covs[rows])
+        return _associate(T, part, tgt, max_corr_dist)
+
+    return lm_loop_batched(associate=associate_rows, **kw)

@@ -1,4 +1,5 @@
-"""The benchmark drive of ``bench.py`` (make_course), reproduced scan for scan.
+"""The benchmark drives: ``bench.py``'s (make_course), reproduced scan for
+scan, and the course and configuration of ``benchmarks/golden_town.py``.
 
 A straight street drive through a lidar_sim town: 32x512-beam scans with
 first-hit occlusion, range noise and dropout (~10-12k returns per frame),
@@ -38,3 +39,59 @@ def make_course(n_frames: int = BENCH_FRAMES, step: float = BENCH_STEP, seed: in
         T[2, 3] = 1.8 + rng.normal(0.0, 0.01)
         scans.append(L.scan(town, T, model, seed=100000 * seed + i))
     return scans
+
+
+# -- benchmarks/golden_town.py's course, "base" mode ----------------------------
+
+GOLDEN_CLOUD_CAPACITY = 4096
+GOLDEN_RAW_CAPACITY = 16384
+GOLDEN_WINDOW = 16
+GOLDEN_SENSOR_HEIGHT = 1.8
+
+
+def golden_town_sensor_poses():
+    """The 601 sensor poses of benchmarks/golden_town.py: two laps around a
+    city block (town_course(blocks=2, loops=2, step=1.2)), 1.8 m above the
+    ground; frame i is stamped float(i)."""
+    out = []
+    for pose in L.town_course(blocks=2, loops=2, step=1.2):
+        sensor = pose.copy()
+        sensor[2, 3] += GOLDEN_SENSOR_HEIGHT
+        out.append(sensor)
+    return out
+
+
+def golden_town_scene():
+    """(town, lidar model) of benchmarks/golden_town.py."""
+    town = L.make_town(seed=1, blocks=3)
+    model = L.LidarModel(rings=32, azimuth_steps=512, max_range=60.0, range_noise=0.02, dropout=0.05)
+    return town, model
+
+
+def golden_town_config():
+    """benchmarks/golden_town.py make_cfg("base"): FAST_GICP odometry and
+    loop matching with 0.1 m gated re-association, 0.5 m voxels out to 60
+    m, 4 m keyframes, the reference's outdoor loop gates (15 / 25 / 15 m,
+    fitness 2.5), 60 LM iterations per cycle, a 10 s cycle, floor off."""
+    from ..core.config import RegistrationConfig, SlamConfig
+
+    reg = RegistrationConfig(registration_method="FAST_GICP", reg_reassoc_displacement=0.1)
+    cfg = SlamConfig()
+    cfg.prefilter.downsample_resolution = 0.5
+    cfg.prefilter.outlier_removal_method = "NONE"
+    cfg.prefilter.distance_far_thresh = 60.0
+    cfg.odometry.registration = reg
+    cfg.odometry.keyframe_delta_trans = 4.0
+    cfg.odometry.keyframe_delta_time = 1e9
+    cfg.backend.keyframe_delta_trans = 4.0
+    cfg.backend.fix_first_node = True
+    cfg.backend.fix_first_node_stddev = "10 10 1000 1 1 1"
+    cfg.backend.g2o_solver_num_iterations = 60
+    cfg.backend.graph_update_interval = 10.0
+    cfg.loop.registration = reg
+    cfg.loop.distance_thresh = 15.0
+    cfg.loop.accum_distance_thresh = 25.0
+    cfg.loop.min_edge_interval = 15.0
+    cfg.loop.fitness_score_thresh = 2.5
+    cfg.floor.enabled = False
+    return cfg

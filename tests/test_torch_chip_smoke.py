@@ -64,3 +64,87 @@ def test_refuses_to_run_without_a_gpu_or_alone(tmp_path):
                               timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+# -- the golden_town phases' helpers ---------------------------------------------
+
+
+def test_check_batched_gates_plain_selections(monkeypatch):
+    """check_batched passes the plain twins on a ragged batch (on the CPU
+    the batched wrappers run their plain twins), and fails a broken one."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    q, t, _ = clouds(63)
+    qb, tb = torch.stack([q, q + 0.5]), torch.stack([t, t])
+    tb[1, 400:] = 1.0e6
+    rows_q = torch.ones(qb.shape[:2], dtype=torch.bool)
+    rows_t = (tb.abs() < 1e5).all(-1)
+    for kind, qq, rows in (("nn1", qb, rows_q), ("knn_select", tb, rows_t)):
+        row = chip_smoke.check_batched(knn, kind, qq, tb, rows, "cpu")
+        assert row["rows_valid"] == 1.0 and row["idx_identical"]
+    broken = lambda q_, t_: (knn.knn_select_batched_plain(q_, t_, 21)[0][..., 1], knn.nn1_batched_plain(q_, t_)[1])
+    monkeypatch.setattr(knn, "nn1_batched", broken)
+    with pytest.raises(RuntimeError):
+        chip_smoke.check_batched(knn, "nn1", qb, tb, rows_q, "broken")
+
+
+def test_synthetic_graph_solves_on_cpu():
+    from hdl_graph_slam_tpu_torch.graph import optimize
+
+    g = chip_smoke.synthetic_graph(0)
+    assert len(g.poses) == 95 and len(g.edge_rows["se3_se3"]) == 93 + 1 + 12
+    _, st = optimize(g.freeze(dtype=torch.float64, device="cpu"), max_iterations=8)
+    assert float(st.chi2_robust_after) < 0.5 * float(st.chi2_robust_before)
+
+
+class _Ev:
+    def __init__(self, name, a, b, cuda):
+        from torch.autograd import DeviceType
+
+        self.name = name
+        self.time_range = type("R", (), {"start": a, "end": b})()
+        self.device_type = DeviceType.CUDA if cuda else DeviceType.CPU
+
+
+def test_device_busy_unions_intervals():
+    """Overlapping device intervals count once; a named window counts only
+    the device time inside it; the device-side mirror of an annotation is
+    no device work (times in microseconds)."""
+    events = [_Ev("k", 10, 30, True), _Ev("k", 20, 40, True), _Ev("k", 70, 80, True),
+              _Ev("slam/x", 0, 50, False), _Ev("slam/x", 5, 45, True), _Ev("other", 0, 100, False)]
+    prof = type("P", (), {"events": lambda self: events})()
+    busy, wall = chip_smoke.device_busy(prof)
+    assert (busy, wall) == pytest.approx((40e-6, 100e-6))
+    busy, wall = chip_smoke.device_busy(prof, {"slam/x"})
+    assert (busy, wall) == pytest.approx((30e-6, 50e-6))
+
+
+def test_stage_clock_wraps_and_restores():
+    class Owner:
+        def work(self, x):
+            return 2 * x
+
+    clock = chip_smoke.StageClock()
+    clock.wrap(Owner, "work", "w", keep_result=True)
+    assert Owner().work(3) == 6 and Owner().work(4) == 8
+    assert clock.timer.counts["w"] == 2 and clock.timer.totals["w"] >= 0.0
+    assert clock.results["w"] == [6, 8]
+    clock.restore()
+    assert Owner.work.__name__ == "work"
+
+
+def test_golden_town_course_is_the_benchmark_course():
+    """utils/course.py's golden_town poses are benchmarks/golden_town.py's:
+    town_course(blocks=2, loops=2, step=1.2) with the sensor 1.8 m up."""
+    from hdl_graph_slam_tpu.utils import lidar_sim as jL
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    poses = course.golden_town_sensor_poses()
+    ref = jL.town_course(blocks=2, loops=2, step=1.2)
+    assert len(poses) == len(ref) == 601
+    for p, r in zip(poses, ref):
+        r = r.copy()
+        r[2, 3] += 1.8
+        np.testing.assert_array_equal(p, r)
+    cfg = course.golden_town_config()
+    assert (cfg.loop.distance_thresh, cfg.loop.accum_distance_thresh, cfg.loop.min_edge_interval,
+            cfg.loop.fitness_score_thresh, cfg.backend.g2o_solver_num_iterations) == (15.0, 25.0, 15.0, 2.5, 60)
