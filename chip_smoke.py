@@ -42,6 +42,19 @@ before the last line:
            the unbatched entry point bit for bit. Also nn1 at the loop
            association shape (8 x 4096 queries flattened against one 4096-row
            target). Timed as the kernel phase.
+   kernel_filters  radius_count against its plain twin and float64 counts
+           (every row equal but rows holding a pair within the expanded
+           form's rounding of r^2; on the integer lattice every row, bit for
+           bit) on a golden keyframe cloud (r = 0.8 m), a bench cloud, a
+           16384-row cloud scanned in two shared-memory stages and the
+           kernel_edges shapes; knn_select at k = 10 and 21 through the
+           kernel phase's check; the statistical and radius outlier masks,
+           card against CPU. Timed as the kernel phase.
+   floor   FloorDetector on the 8 keyframe clouds: the card's clipped cloud
+           against the CPU's, RANSAC card against CPU through
+           fit_plane_from_triplets with the same triplets (the same inlier
+           count, coefficients within 1e-5), each floor within 1 degree of
+           vertical and 0.05 m of the 1.8 m sensor height.
 7. graph   the port's dense LM pose-graph optimize on a golden-sized
            synthetic graph (94 poses, 2 laps, 12 loop edges) in float64 on
            the card against the same code on the CPU; ms per iteration on
@@ -58,7 +71,17 @@ before the last line:
            Then slam_profile: torch.profiler over one odometry stretch (48
            frames of a fresh pipeline), one batched loop match and one graph
            solve of the finished run: device busy time and idle share of each.
-9. The kernels line (all four entry points), the card's name and power
+9. slam_floor  golden_town "floor" through run_windowed, the slam gates plus
+           floor edges >= 0.9 x keyframes; floor detection's host ms per call.
+10. host   golden_town_outdoor_config() (floor, RADIUS prefilter) through the
+           per-frame SlamPipeline.run(): ScanMatchingOdometry, the radius
+           filter and floor detection on every frame, all 601 frames, the
+           slam_floor gates plus one radius_count launch per frame at least;
+           host syncs per frame and the device idle share over 16 traced
+           frames of a fresh pipeline. Then the STATISTICAL prefilter's path:
+           run(device_odometry=True) over 48 frames against run_windowed,
+           odometry within 1e-4.
+11. The kernels line (every kernel entry point), the card's name and power
    limit, then the last line {"ok": true, "device": {...}}.
 
 Phases run in that order, every one on the card.
@@ -113,6 +136,14 @@ KNN_MIN_IDENTICAL_SETS = 0.999
 ROW_ULPS = 10
 EPS32 = float(np.finfo(np.float32).eps)
 GOLDEN_B = 8  # loop candidates per batch (LoopDetectorConfig.max_candidates)
+RADIUS_M = 0.8  # the outdoor preset's radius filter (core/config.py preset_outdoor)
+# ops per (query, target) pair of radius_count: 3 FSUB, FMUL, 2 FFMA (4 flops),
+# a compare and an add
+RADIUS_OPS_PER_PAIR = 10
+FLOOR_COEFF_ATOL = 1e-5  # RANSAC card vs CPU on the same triplets: float32 cross products
+FLOOR_TILT_DEG = 1.0  # golden_town's ground is the plane z = 0 under a level sensor
+FLOOR_HEIGHT_ATOL_M = 0.05
+ODOM_PARITY_ATOL = 1e-4  # run(device_odometry=True) vs run_windowed: one device step
 # graph phase, card vs CPU: the same float64 LM; the Cholesky and the sums
 # round differently (cuSOLVER vs LAPACK), so accepts decided at the rounding
 # floor may differ by an iteration, at poses equal far below 1e-6 m
@@ -203,8 +234,10 @@ def rows_valid(q, t, idx, rows, chunk: int = 1024) -> tuple:
     (N,k): per row, the largest chosen exact squared distance must not exceed
     the smallest unchosen one (the true minimum for nn1) by more than
     ROW_ULPS eps32 S_row, S_row = |q_c|^2 + the larger |t_c|^2 of the two
-    targets compared. Returns (fraction of ``rows`` valid, max excess in
-    units of eps32 S_row; <= 0 means no chosen neighbour loses at all)."""
+    targets compared, and a (N,k) row must name k distinct targets (a
+    target chosen twice would hide the k-th neighbour it displaced).
+    Returns (fraction of ``rows`` valid, max excess in units of eps32 S_row;
+    <= 0 means no chosen neighbour loses at all)."""
     import torch
 
     qc, tc, qn, tn = _centred64(q, t)
@@ -222,7 +255,8 @@ def rows_valid(q, t, idx, rows, chunk: int = 1024) -> tuple:
         t_big = torch.maximum(tn[ii.gather(1, carg[:, None])[:, 0]], tn[oarg])
         scale = EPS32 * (qn[sl] + t_big)
         x = torch.where(torch.isfinite(omin), (cmax - omin) / scale, -torch.inf)
-        ok.append(x <= ROW_ULPS)
+        s = ii.sort(1).values
+        ok.append((x <= ROW_ULPS) & (s[:, 1:] > s[:, :-1]).all(1))
         excess.append(x)
     ok, excess = torch.cat(ok)[rows], torch.cat(excess)[rows]
     return int(ok.sum()) / ok.numel(), float(excess.max())
@@ -250,21 +284,35 @@ def check_nn1(knn, q, t, rows, what: str) -> dict:
     return row
 
 
-def check_knn(knn, q, t, rows, what: str) -> dict:
-    """knn_select kernel vs its plain twin and the exact check."""
+def check_knn(knn, q, t, rows, what: str, k: int = K_NEIGHBOURS, near_ties: bool = False) -> dict:
+    """knn_select kernel vs its plain twin and the exact check. Where the
+    data hold many near-ties at the k-th neighbour (voxel grids of a flat
+    floor: ``near_ties``), the share of identical sets is reported but not
+    gated; instead, on every row whose sets differ the plain twin's set must
+    pass the same float64 check as the kernel's. Two sets of k distinct
+    targets that both pass it differ only by neighbours whose float64
+    distances tie within the bound: each is chosen by one side and left by
+    the other."""
     import torch
 
-    i_k, d_k = knn.knn_select(q, t, K_NEIGHBOURS)
-    i_p, d_p = knn.knn_select_plain(q, t, K_NEIGHBOURS)
+    i_k, d_k = knn.knn_select(q, t, k)
+    i_p, d_p = knn.knn_select_plain(q, t, k)
     torch.cuda.synchronize()
-    same = (i_k.sort(1).values == i_p.sort(1).values).all(1)[rows]
+    same_all = (i_k.sort(1).values == i_p.sort(1).values).all(1)
+    same = same_all[rows]
     valid, excess = rows_valid(q, t, i_k, rows)
-    row = dict(kernel="knn_select", case=what, n=q.shape[0], m=t.shape[0], k=K_NEIGHBOURS,
+    row = dict(kernel="knn_select", case=what, n=q.shape[0], m=t.shape[0], k=k,
                rows_identical_sets=int(same.sum()) / same.numel(), idx_identical=bool(torch.equal(i_k, i_p)),
                max_abs_err=float((d_k - d_p)[rows].abs().max()), rows_valid=valid, max_excess_eps_s=excess,
                sorted_ascending=bool((d_k[:, 1:] >= d_k[:, :-1]).all()))
-    require(row["rows_identical_sets"] >= KNN_MIN_IDENTICAL_SETS,
-            f"knn_select {what}: identical sets on only {row['rows_identical_sets']} of rows")
+    if near_ties:
+        differ = rows & ~same_all
+        row["plain_rows_valid_where_sets_differ"] = rows_valid(q, t, i_p, differ)[0] if bool(differ.any()) else 1.0
+        require(row["plain_rows_valid_where_sets_differ"] == 1.0,
+                f"knn_select {what}: sets differ from the plain twin's beyond near-ties: {row}")
+    else:
+        require(row["rows_identical_sets"] >= KNN_MIN_IDENTICAL_SETS,
+                f"knn_select {what}: identical sets on only {row['rows_identical_sets']} of rows: {row}")
     require(valid == 1.0, f"knn_select {what}: {1 - valid} of rows hold a farther neighbour than the bound allows")
     require(row["sorted_ascending"], f"knn_select {what}: output not sorted")
     return row
@@ -555,9 +603,12 @@ class StageClock:
 def slam_stages(clock: StageClock, count_syncs: bool) -> None:
     from hdl_graph_slam_tpu_torch.backend import information_matrix, loop_detector
     from hdl_graph_slam_tpu_torch.backend import slam as slam_mod
-    from hdl_graph_slam_tpu_torch.frontend import window
+    from hdl_graph_slam_tpu_torch.frontend import FloorDetector, Prefilter, ScanMatchingOdometry, window
 
     clock.wrap(window.OdometryWindow, "run_with_clouds", "odometry_window", sync=True)
+    clock.wrap(Prefilter, "__call__", "prefilter", sync=True)
+    clock.wrap(ScanMatchingOdometry, "step", "odometry_frame", sync=True)
+    clock.wrap(FloorDetector, "detect", "floor_detect", sync=True)
     clock.wrap(slam_mod.HdlGraphSlam, "optimize_cycle", "optimize_cycle", sync=True, count_syncs=count_syncs)
     clock.wrap(loop_detector.LoopDetector, "detect", "loop_detection")
     clock.wrap(information_matrix.InformationMatrixCalculator, "calc_information_matrices_batched",
@@ -579,22 +630,29 @@ def golden_course_phase() -> dict:
     return dict(scans=scans, truth=truth, cfg=course.golden_town_config())
 
 
-def kernel_batched_phase(knn, golden) -> dict:
-    """The batched kernels at the loop shapes against their plain twins."""
-    import torch
+def golden_keyframes(golden) -> tuple:
+    """GOLDEN_B golden_town frames spread over the course (0 to 597) and the
+    frames 3 after them, prefiltered on the card as the slam phase does:
+    (frame indices, their clouds, the later frames' clouds)."""
     from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
     from hdl_graph_slam_tpu_torch.frontend import Prefilter
     from hdl_graph_slam_tpu_torch.utils import course
 
-    cfg = golden["cfg"]
-    pf = Prefilter(cfg.prefilter, out_capacity=course.GOLDEN_CLOUD_CAPACITY, device="cuda")
+    pf = Prefilter(golden["cfg"].prefilter, out_capacity=course.GOLDEN_CLOUD_CAPACITY, device="cuda")
     frames = np.linspace(0, len(golden["scans"]) - 4, GOLDEN_B).round().astype(int)
 
     def cloud(i):
         return pf(cloudlib.from_numpy(golden["scans"][i], capacity=course.GOLDEN_RAW_CAPACITY, device="cuda"))
 
-    tgts = [cloud(i) for i in frames]
-    srcs = [cloud(i + 3) for i in frames]
+    return frames, [cloud(i) for i in frames], [cloud(i + 3) for i in frames]
+
+
+def kernel_batched_phase(knn, golden, keyframes) -> dict:
+    """The batched kernels at the loop shapes against their plain twins."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
+
+    frames, tgts, srcs = keyframes
     truth = golden["truth"]
     # information-matrix shape: keyframe i+3 moved into keyframe i's frame
     rel = torch.from_numpy(np.stack([np.linalg.inv(truth[i]) @ truth[i + 3] for i in frames])).float().to("cuda")
@@ -685,74 +743,6 @@ def graph_phase() -> None:
     require(row["chi2_after_cuda"] < row["chi2_before"], "graph: the solve did not lower chi2")
 
 
-def slam_phase(knn, golden) -> dict:
-    """golden_town base through SlamPipeline.run_windowed on the card."""
-    import torch
-    from hdl_graph_slam_tpu_torch.io import trajectory as traj_io
-    from hdl_graph_slam_tpu_torch.pipeline import SlamPipeline
-    from hdl_graph_slam_tpu_torch.utils import course
-
-    scans, truth, cfg = golden["scans"], golden["truth"], golden["cfg"]
-    frames = [(float(i), x, None) for i, x in enumerate(scans)]
-
-    def run(frames_):
-        pipe = SlamPipeline(cfg, cloud_capacity=course.GOLDEN_CLOUD_CAPACITY, device="cuda")
-        result = pipe.run_windowed(frames_, window=course.GOLDEN_WINDOW, raw_capacity=course.GOLDEN_RAW_CAPACITY)
-        torch.cuda.synchronize()
-        return pipe, result
-
-    clock = StageClock()
-    slam_stages(clock, count_syncs=True)
-    counters = (knn.nn1, knn.knn_select, knn.nn1_batched, knn.knn_select_batched)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    t0 = time.perf_counter()
-    try:
-        pipe, result = run(frames)
-    finally:
-        clock.restore()
-    wall = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
-
-    est = result.trajectory
-    kf_stamps = {st for st, _ in est}
-    odom_kf = [(st, T) for st, T in result.odometry_trajectory if st in kf_stamps]
-    ref = [(float(i), T) for i, T in enumerate(truth)]
-    Rs = np.stack([T[:3, :3] for _, T in result.odometry_trajectory])
-    n_kf = len(pipe.slam.keyframes)
-    n_loops = len(pipe.slam.graph.edge_rows["se3_se3"]) - (n_kf - 1) - 1  # chain + anchor
-    stats = pipe.slam.last_stats
-    graph_iterations = sum(int(st.iterations) for _, st in clock.results["graph_solve"])
-    row = dict(
-        phase="slam", frames=result.num_frames, keyframes=n_kf, loop_edges=n_loops,
-        ate_opt_m=traj_io.ate_rmse(est, ref, align=True), ate_odom_m=traj_io.ate_rmse(odom_kf, ref, align=True),
-        det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
-        orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
-        seconds=wall, fps=result.num_frames / wall,
-        host_wall_s={k: clock.timer.totals[k] for k in ("odometry_window", "optimize_cycle", "loop_detection",
-                                                        "information_matrices", "graph_solve")},
-        calls=dict(clock.timer.counts),
-        host_syncs_per_optimize_cycle=dict(mean=float(np.mean(clock.syncs)), max=int(max(clock.syncs)),
-                                           total=int(sum(clock.syncs)), cycles=len(clock.syncs)),
-        last_solve_iterations=int(stats.iterations) if stats is not None else None,
-        graph_iterations=graph_iterations,
-        graph_ms_per_iteration=1e3 * clock.timer.totals["graph_solve"] / max(graph_iterations, 1),
-        launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        reference=dict(source="PERF_JAX_REFERENCE.md:415-433 (JAX package on TPU)", ate_opt_m=0.0342,
-                       ate_odom_m=0.0847, keyframes=93, loop_edges=12),
-    )
-    emit(row)
-    require(row["frames"] == len(scans), f"slam ran {row['frames']} of {len(scans)} frames")
-    require(row["det_err"] < 1e-4 and row["orth_err"] < 1e-4, f"slam: rotation drift {row['det_err']}, {row['orth_err']}")
-    require(n_loops >= 2, f"slam: only {n_loops} loop edges")
-    require(row["ate_opt_m"] < row["ate_odom_m"], f"slam: optimized ATE {row['ate_opt_m']} >= odometry {row['ate_odom_m']}")
-    require(all(v >= 1 for v in launches.values()), f"slam path did not go through every kernel: {launches}")
-    slam_profile(pipe, frames)
-    return launches
-
-
 def slam_profile(pipe, frames) -> None:
     """Device busy time and idle share of the slam path's stages, each
     traced on its own with torch.profiler: 48 frames of a fresh pipeline
@@ -806,8 +796,400 @@ def slam_profile(pipe, frames) -> None:
     emit(out)
 
 
-def kernels_line(kres, bres, launches, peak_flops) -> list:
-    """One entry per kernel entry point measured in this run."""
+def exact_radius_counts(q, t, r: float, chunk: int = 1024) -> tuple:
+    """Float64 counts of targets with |q - t|^2 below float32(r^2), the
+    radius the kernel compares against, and per row whether a pair lies
+    within 10 eps32 (|q_c|^2 + |t_c|^2) of it (centred as rows_valid), where
+    float32 rounding may decide either way."""
+    import torch
+
+    qc, tc, qn, tn = _centred64(q, t)
+    r2 = float(np.float32(r * r))
+    counts, near = [], []
+    for s in range(0, q.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        d2 = ((qc[sl, None, :] - tc[None, :, :]) ** 2).sum(-1)
+        counts.append((d2 < r2).sum(-1))
+        near.append(((d2 - r2).abs() <= ROW_ULPS * EPS32 * (qn[sl, None] + tn[None, :])).any(-1))
+    return torch.cat(counts), torch.cat(near)
+
+
+def check_radius(knn, q, t, r: float, rows, what: str, exact_ties: bool = False) -> dict:
+    """radius_count kernel vs its plain twin and float64 counts: every row
+    of ``rows`` equal to the float64 count but rows with a pair within
+    rounding of r^2; with ``exact_ties`` (integer coordinates, every d^2
+    exact) every row, and the kernel equal to its plain twin bit for bit."""
+    import torch
+
+    c_k = knn.radius_count(q, t, r)
+    c_p = knn.radius_count_plain(q, t, r)
+    torch.cuda.synchronize()
+    exact, near = exact_radius_counts(q, t, r)
+    judged = rows if exact_ties else rows & ~near
+    row = dict(kernel="radius_count", case=what, n=q.shape[0], m=t.shape[0], r=r,
+               rows_near_r=int((rows & near).sum()), rows_judged=int(judged.sum()),
+               rows_off_float64=int(((c_k.long() != exact) & judged).sum()),
+               plain_rows_off_float64=int(((c_p.long() != exact) & judged).sum()),
+               idx_identical=bool(torch.equal(c_k, c_p)), max_abs_err=int((c_k - c_p)[rows].abs().max()),
+               mean_count=float(c_k[rows].double().mean()))
+    require(row["rows_off_float64"] == 0, f"radius_count {what}: {row['rows_off_float64']} rows off the float64 count")
+    require(row["plain_rows_off_float64"] == 0, f"radius_count_plain {what}: rows off the float64 count")
+    if exact_ties:
+        require(row["idx_identical"], f"radius_count {what}: differs from the plain twin on exact distances")
+    return row
+
+
+def floor_band(cloud, height: float = 1.8, clip: float = 1.0):
+    """The floor detector's double plane clip of a cloud (tilt 0): the
+    normal estimation's input, with its padded rows where they fall."""
+    import torch
+    from hdl_graph_slam_tpu_torch.ops import filters
+
+    def plane(d):
+        return torch.tensor([0.0, 0.0, 1.0, d], dtype=cloud.xyz.dtype, device=cloud.xyz.device)
+
+    c = filters.plane_clip(cloud, plane(height + clip), negative=False)
+    return filters.plane_clip(c, plane(height - clip), negative=True)
+
+
+def outlier_masks(cloud_gpu, mean_k: int = 20, stddev: float = 1.0, radius: float = 0.5) -> dict:
+    """The statistical and radius outlier filters on the card against the
+    CPU on one cloud: the masks may differ only on rows within rounding of
+    their gate (the mean distance within 1e-4 relative plus the two sides'
+    largest mean-distance difference of the threshold; a pair within
+    rounding of r^2)."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core.cloud import PointCloud
+    from hdl_graph_slam_tpu_torch.ops import filters, knn
+
+    cpu = PointCloud(xyz=cloud_gpu.xyz.cpu(), mask=cloud_gpu.mask.cpu())
+    out = {}
+
+    def mean_d(c):
+        xyz = c.valid_xyz()
+        _, d2 = knn.knn(xyz, xyz, mean_k + 1)
+        return torch.sqrt(torch.clamp(d2[:, 1:], min=0.0)).mean(-1).cpu().double()
+
+    m_g, m_c = mean_d(cloud_gpu), mean_d(cpu)
+    valid = cpu.mask
+    g_mean = m_c[valid].mean()
+    thr = g_mean + stddev * torch.sqrt(torch.clamp((m_c[valid] ** 2).mean() - g_mean ** 2, min=0.0))
+    near = (m_c - thr).abs() <= 1e-4 * thr + (m_g - m_c)[valid].abs().max()
+    for name, fn, near_rows in (
+            ("statistical", lambda c: filters.statistical_outlier_removal(c, mean_k, stddev), near),
+            ("radius", lambda c: filters.radius_outlier_removal(c, radius, 2),
+             exact_radius_counts(cloud_gpu.valid_xyz(), cloud_gpu.valid_xyz(), radius)[1].cpu())):
+        a, b = fn(cloud_gpu).mask.cpu(), fn(cpu).mask
+        off = (a != b) & valid
+        out[name] = dict(kept_gpu=int(a.sum()), kept_cpu=int(b.sum()), rows_differ=int(off.sum()),
+                         rows_differ_off_gate=int((off & ~near_rows).sum()), rows_near_gate=int((near_rows & valid).sum()))
+        require(out[name]["rows_differ_off_gate"] == 0,
+                f"{name} outlier mask: card and CPU differ on {out[name]['rows_differ_off_gate']} rows off the gate")
+    return out
+
+
+def kernel_filters_phase(knn, keyframes, bench_clouds, rng) -> dict:
+    """radius_count and knn_select at k = 10, 21 against their plain twins
+    and float64; the outlier masks card against CPU on the two bench clouds
+    (statistical: mean_k 20, 1 std; radius: the indoor preset's 0.5 m, 2
+    neighbours). Returns the timed rows by kernel entry (radius_count,
+    knn_select_k10, knn_select_k21)."""
+    import torch
+
+    dev = torch.device("cuda")
+    bench_cloud = bench_clouds[0]
+    kf = keyframes[1][0]
+    band = floor_band(kf)
+    gq, grows = kf.valid_xyz().contiguous(), kf.mask
+    bq, brows = bench_cloud.valid_xyz().contiguous(), bench_cloud.mask
+
+    def uniform(n, n_pad=0, half=60.0):
+        x = rng.uniform(-half, half, (n, 3)).astype(np.float32)
+        x[n - n_pad:] = 1.0e6
+        return torch.from_numpy(x).to(dev)
+
+    g = np.arange(16, dtype=np.float32)
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    lat = torch.from_numpy(lat[rng.permutation(np.r_[np.arange(len(lat)), rng.integers(0, len(lat), 1024)])]).to(dev)
+    ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)  # noqa: E731
+    dense = uniform(16384, 1600, half=10.0)
+    radius_cases = {
+        "golden_keyframe": (gq, gq, grows, RADIUS_M),
+        "bench": (bq, bq, brows, RADIUS_M),
+        "n16384_two_stages": (dense, dense, ones(16384) & (dense.abs() < 1e5).all(-1), RADIUS_M),
+        "n1_m20": (uniform(1), uniform(20), ones(1), 60.0),
+        "n31_m8192": (uniform(31), uniform(8192), ones(31), 10.0),
+        "n8192_m20000_multi_stage": (uniform(8192), uniform(20000), ones(8192), 5.0),
+        "all_but_25_padded": (uniform(2048), uniform(8192, 8192 - 25), ones(2048), 40.0),
+    }
+    timed = {}
+    for case, (q, t, rows, r) in radius_cases.items():
+        row = dict(phase="kernel_filters", **check_radius(knn, q, t, r, rows, case),
+                   launch=knn.launch_info("radius_count", q.shape[0], t.shape[0]))
+        if case == "golden_keyframe":
+            row.update(time_rows(lambda: knn.radius_count(q, t, r), lambda: knn.radius_count_plain(q, t, r)))
+            row["valid_pairs"] = int(rows.sum()) ** 2
+            timed["radius_count"] = row
+        emit(row)
+    row = dict(phase="kernel_filters", **check_radius(knn, lat, lat, 1.0, ones(lat.shape[0]), "lattice_duplicates",
+                                                      exact_ties=True))
+    emit(row)
+
+    knn_cases = {
+        "floor_band": (band.valid_xyz().contiguous(), band.mask),
+        "golden_keyframe": (gq, grows),
+        "bench": (bq, brows),
+        "uniform_padded": (uniform(8192, 819), ones(8192) & (torch.arange(8192, device=dev) < 8192 - 819)),
+        "n8192_m20000_multi_stage": (uniform(20000), ones(20000)),
+        "lattice_duplicates": (lat, ones(lat.shape[0])),
+    }
+    for k in (10, 21):
+        for case, (t, rows) in knn_cases.items():
+            row = dict(phase="kernel_filters", **check_knn(knn, t, t, rows, case, k=k, near_ties=True),
+                       launch=knn.launch_info("knn_select", t.shape[0], t.shape[0], k=k))
+            if case == "lattice_duplicates":
+                require(row["idx_identical"], f"knn_select k={k} {case}: indices differ from the plain twin")
+            if (k, case) in ((10, "floor_band"), (21, "golden_keyframe")):
+                row.update(time_rows(lambda: knn.knn_select(t, t, k), lambda: knn.knn_select_plain(t, t, k)))
+                row["valid_pairs"] = int(rows.sum()) ** 2
+                timed[f"knn_select_k{k}"] = row
+            emit(row)
+        for case, (q, t) in {"n1_m20": (uniform(1), uniform(20)), "n31_m8192": (uniform(31), uniform(8192))}.items():
+            if t.shape[0] >= k:
+                emit(dict(phase="kernel_filters", **check_knn(knn, q, t, ones(q.shape[0]), case, k=k, near_ties=True)))
+    emit(dict(phase="kernel_filters", case="outlier_masks", bench=[outlier_masks(c) for c in bench_clouds]))
+    return timed
+
+
+def time_rows(fn, plain) -> dict:
+    """kernel_ms, device_ms, host_ms and plain_ms of a kernel entry point."""
+    return dict(kernel_ms=time_ms(fn), device_ms=time_ms(fn, device_only=True), host_ms=host_ms(fn),
+                plain_ms=time_ms(plain, reps=2, batches=3))
+
+
+def floor_phase(keyframes) -> dict:
+    """FloorDetector on the GOLDEN_B keyframe clouds on the card: the card's
+    clipped cloud against the CPU's, RANSAC card against CPU on the same
+    triplets, each detected floor against the truth."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core.cloud import PointCloud
+    from hdl_graph_slam_tpu_torch.frontend import FloorDetector
+    from hdl_graph_slam_tpu_torch.ops import ransac
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    cfg = course.golden_town_config("floor").floor
+    det, det_cpu = FloorDetector(cfg, device="cuda"), FloorDetector(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    rows = []
+    for frame, c in zip(keyframes[0], keyframes[1]):
+        band = det._prefilter(c)
+        band_cpu = det_cpu._prefilter(PointCloud(xyz=c.xyz.cpu(), mask=c.mask.cpu()))
+        count = int(band.count)
+        tri = ransac.sample_triplets(gen, cfg.ransac_hypotheses, band.capacity, count)
+        res = ransac.fit_plane_from_triplets(band, tri.cuda(), cfg.ransac_distance_thresh)
+        ref = ransac.fit_plane_from_triplets(PointCloud(xyz=band.xyz.cpu(), mask=band.mask.cpu()), tri,
+                                             cfg.ransac_distance_thresh)
+        coeffs = det.detect(c)
+        rows.append(dict(frame=int(frame), band_rows=count, band_rows_cpu=int(band_cpu.count),
+                         inliers=int(res.num_inliers), inliers_cpu=int(ref.num_inliers),
+                         coeff_max_abs_err=float((res.coeffs.cpu() - ref.coeffs).abs().max()),
+                         detected=None if coeffs is None else [float(x) for x in coeffs]))
+        r = rows[-1]
+        require(abs(r["band_rows"] - r["band_rows_cpu"]) <= 0.01 * r["band_rows"],
+                f"floor frame {frame}: clipped clouds of {r['band_rows']} and {r['band_rows_cpu']} rows")
+        require(r["inliers"] == r["inliers_cpu"], f"floor frame {frame}: inliers {r['inliers']} vs {r['inliers_cpu']}")
+        require(r["coeff_max_abs_err"] <= FLOOR_COEFF_ATOL, f"floor frame {frame}: coefficients differ")
+        require(coeffs is not None, f"floor frame {frame}: no floor detected")
+        tilt = float(np.degrees(np.arccos(min(1.0, abs(coeffs[2])))))
+        r["tilt_deg"], r["height_err_m"] = tilt, float(abs(coeffs[3] - course.GOLDEN_SENSOR_HEIGHT))
+        require(tilt <= FLOOR_TILT_DEG and r["height_err_m"] <= FLOOR_HEIGHT_ATOL_M,
+                f"floor frame {frame}: tilt {tilt} deg, height error {r['height_err_m']} m")
+    # the card's detect as the per-frame path calls it: host ms per call
+    c = keyframes[1][0]
+    row = dict(phase="floor", frames=rows, coeff_atol=FLOOR_COEFF_ATOL, tilt_max_deg=FLOOR_TILT_DEG,
+               height_atol_m=FLOOR_HEIGHT_ATOL_M,
+               detect_ms=time_ms(lambda: det.detect(c), reps=5, batches=3))
+    emit(row)
+    return row
+
+
+LAUNCH_COUNTERS = ("nn1", "knn_select", "nn1_batched", "knn_select_batched", "radius_count")
+
+
+def reset_launches(knn) -> None:
+    for name in LAUNCH_COUNTERS:
+        getattr(knn, name).launches = 0
+    knn.knn_select.launches_k = dict.fromkeys(knn.KNN_SELECT_KS, 0)
+
+
+def read_launches(knn) -> dict:
+    """Launches per kernel entry since reset_launches: knn_select per k, its
+    k = 20 (GICP) count under the plain name."""
+    out = {name: getattr(knn, name).launches for name in LAUNCH_COUNTERS}
+    out.update({f"knn_select_k{k}": v for k, v in knn.knn_select.launches_k.items() if k != K_NEIGHBOURS})
+    out["knn_select"] = knn.knn_select.launches_k[K_NEIGHBOURS]
+    return out
+
+
+def golden_frames(golden, n=None) -> list:
+    return [(float(i), x, None) for i, x in enumerate(golden["scans"][:n])]
+
+
+def run_golden(cfg, frames, per_frame: bool = False, device_odometry: bool = False):
+    """A fresh pipeline on the card over golden_town frames: run() (per
+    frame) or run_windowed at the golden window and capacities."""
+    import torch
+    from hdl_graph_slam_tpu_torch.pipeline import SlamPipeline
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    pipe = SlamPipeline(cfg, cloud_capacity=course.GOLDEN_CLOUD_CAPACITY, device_odometry=device_odometry,
+                        device="cuda")
+    if per_frame:
+        result = pipe.run(frames)
+    else:
+        result = pipe.run_windowed(frames, window=course.GOLDEN_WINDOW, raw_capacity=course.GOLDEN_RAW_CAPACITY)
+    torch.cuda.synchronize()
+    return pipe, result
+
+
+def slam_phase(knn, golden, phase: str = "slam", cfg=None, per_frame: bool = False,
+               required=("nn1", "knn_select", "nn1_batched", "knn_select_batched")) -> dict:
+    """golden_town through SlamPipeline.run_windowed (or, ``per_frame``,
+    run) on the card with ``cfg`` (the base config by default): the gates,
+    the stage split and the launches of every kernel in ``required``."""
+    import torch
+    from hdl_graph_slam_tpu_torch.io import trajectory as traj_io
+
+    scans, truth = golden["scans"], golden["truth"]
+    cfg = cfg or golden["cfg"]
+    frames = golden_frames(golden)
+    clock = StageClock()
+    slam_stages(clock, count_syncs=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(knn)
+    t0 = time.perf_counter()
+    try:
+        pipe, result = run_golden(cfg, frames, per_frame=per_frame)
+    finally:
+        clock.restore()
+    wall = time.perf_counter() - t0
+    launches = read_launches(knn)
+
+    est = result.trajectory
+    kf_stamps = {st for st, _ in est}
+    odom_kf = [(st, T) for st, T in result.odometry_trajectory if st in kf_stamps]
+    ref = [(float(i), T) for i, T in enumerate(truth)]
+    Rs = np.stack([T[:3, :3] for _, T in result.odometry_trajectory])
+    n_kf = len(pipe.slam.keyframes)
+    n_loops = len(pipe.slam.graph.edge_rows["se3_se3"]) - (n_kf - 1) - 1  # chain + anchor
+    n_floor = len(pipe.slam.graph.edge_rows["se3_plane"])
+    stats = pipe.slam.last_stats
+    graph_iterations = sum(int(st.iterations) for _, st in clock.results["graph_solve"])
+    timer = clock.timer
+    row = dict(
+        phase=phase, mode="run (per frame)" if per_frame else "run_windowed", frames=result.num_frames,
+        keyframes=n_kf, loop_edges=n_loops, floor_edges=n_floor,
+        ate_opt_m=traj_io.ate_rmse(est, ref, align=True), ate_odom_m=traj_io.ate_rmse(odom_kf, ref, align=True),
+        det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
+        orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
+        seconds=wall, fps=result.num_frames / wall,
+        host_wall_s=dict(timer.totals), calls=dict(timer.counts),
+        host_ms_per_call={k: 1e3 * timer.totals[k] / timer.counts[k] for k in timer.counts if timer.counts[k]},
+        host_syncs_per_optimize_cycle=dict(mean=float(np.mean(clock.syncs)), max=int(max(clock.syncs)),
+                                           total=int(sum(clock.syncs)), cycles=len(clock.syncs)),
+        last_solve_iterations=int(stats.iterations) if stats is not None else None,
+        graph_iterations=graph_iterations,
+        graph_ms_per_iteration=1e3 * timer.totals["graph_solve"] / max(graph_iterations, 1),
+        launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    if cfg.floor.enabled:
+        row["reference"] = dict(source="PERF_JAX_REFERENCE.md:625 (JAX package on TPU, golden_town floor)",
+                                ate_opt_m=0.0341, ate_odom_m=0.0855, keyframes=93, loop_edges=12, floor_edges=93)
+    else:
+        row["reference"] = dict(source="PERF_JAX_REFERENCE.md:415-433 (JAX package on TPU)", ate_opt_m=0.0342,
+                                ate_odom_m=0.0847, keyframes=93, loop_edges=12)
+    emit(row)
+    require(row["frames"] == len(scans), f"{phase} ran {row['frames']} of {len(scans)} frames")
+    require(row["det_err"] < 1e-4 and row["orth_err"] < 1e-4,
+            f"{phase}: rotation drift {row['det_err']}, {row['orth_err']}")
+    require(n_loops >= 2, f"{phase}: only {n_loops} loop edges")
+    require(row["ate_opt_m"] < row["ate_odom_m"],
+            f"{phase}: optimized ATE {row['ate_opt_m']} >= odometry {row['ate_odom_m']}")
+    if cfg.floor.enabled:
+        require(n_floor >= 0.9 * n_kf, f"{phase}: {n_floor} floor edges for {n_kf} keyframes")
+    require(all(launches[k] >= 1 for k in required), f"{phase} path did not go through every kernel: {launches}")
+    return dict(row=row, pipe=pipe, frames=frames, launches=launches)
+
+
+def host_profile(golden, n: int = 16) -> dict:
+    """The per-frame path's host syncs per frame and device idle share over
+    ``n`` frames of a fresh pipeline traced with torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hdl_graph_slam_tpu_torch.pipeline import SlamPipeline
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    frames = golden_frames(golden, n)
+    clock = StageClock()
+    clock.wrap(SlamPipeline, "process_frame", "process_frame", sync=True, count_syncs=True)
+    try:
+        pipe = SlamPipeline(course.golden_town_outdoor_config(), cloud_capacity=course.GOLDEN_CLOUD_CAPACITY,
+                            device="cuda")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for stamp, xyz, _ in frames:
+                pipe.process_frame(stamp, xyz)
+            torch.cuda.synchronize()
+    finally:
+        clock.restore()
+    busy, wall = device_busy(prof)
+    return dict(frames=n, host_syncs_per_frame=dict(mean=float(np.mean(clock.syncs[1:])), max=int(max(clock.syncs)),
+                                                    bootstrap=int(clock.syncs[0])),
+                device_busy_s=busy, wall_s=wall, device_idle_share=1.0 - busy / wall,
+                top_device=top_device(prof, 10))
+
+
+def host_phase(knn, golden) -> dict:
+    """golden_town_outdoor_config() through the per-frame run(); then its
+    trace, then the STATISTICAL prefilter's path, run(device_odometry=True)
+    against run_windowed over 48 frames."""
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    out = slam_phase(knn, golden, phase="host", cfg=course.golden_town_outdoor_config(), per_frame=True,
+                     required=("nn1", "knn_select", "nn1_batched", "knn_select_batched", "knn_select_k10",
+                               "radius_count"))
+    n = len(golden["scans"])
+    require(out["launches"]["radius_count"] >= n, f"host: radius_count launched {out['launches']['radius_count']} "
+                                                   f"times in {n} frames")
+    emit(dict(phase="host_profile", **host_profile(golden)))
+
+    cfg = course.golden_town_config("floor")
+    cfg.prefilter.outlier_removal_method = "STATISTICAL"  # SlamConfig()'s default filter
+    frames = golden_frames(golden, 48)
+    reset_launches(knn)
+    _, seq = run_golden(cfg, frames, per_frame=True, device_odometry=True)
+    launches = read_launches(knn)
+    reset_launches(knn)
+    _, win = run_golden(cfg, frames)
+    launches_windowed = read_launches(knn)
+    err = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(seq.odometry_trajectory, win.odometry_trajectory))
+    row = dict(phase="host_statistical", frames=len(frames), keyframes_run=seq.num_keyframes,
+               keyframes_windowed=win.num_keyframes, odometry_max_abs_err=err, atol=ODOM_PARITY_ATOL,
+               launches=launches, launches_windowed=launches_windowed)
+    emit(row)
+    require(seq.num_frames == win.num_frames == len(frames), "host_statistical: frame counts differ")
+    require(seq.num_keyframes == win.num_keyframes, "host_statistical: keyframe counts differ")
+    require(err <= ODOM_PARITY_ATOL, f"host_statistical: run vs run_windowed odometry differ by {err}")
+    require(launches["knn_select_k21"] >= len(frames) and launches_windowed["knn_select_k21"] >= 1,
+            f"host_statistical: knn_select k=21 launches {launches} (run), {launches_windowed} (run_windowed)")
+    return dict(host=out["launches"], host_statistical=launches, host_statistical_windowed=launches_windowed)
+
+
+def kernels_line(kres, bres, fres, launches, peak_flops) -> list:
+    """One entry per kernel entry point measured in this run. ``launches``
+    maps each path (main, slam, slam_floor, host, host_statistical: the
+    STATISTICAL run(), host_statistical_windowed: its run_windowed twin) to its
+    launch counts; an entry's ``launches`` is that of its own main path."""
     from hdl_graph_slam_tpu_torch.utils.course import BENCH_FRAMES
 
     line = []
@@ -855,6 +1237,27 @@ def kernels_line(kres, bres, launches, peak_flops) -> list:
             dynamic_smem_bytes=r["launch"]["dynamic_smem_bytes"],
             registers_per_thread=r["launch"]["registers_per_thread"],
         ))
+    # the filter and floor kernels: the work this run's inputs need (valid pairs)
+    for name, path, replaces, ops, out_per_row in (
+            ("radius_count", "host", "hdl_graph_slam_tpu/ops/knn.py:180 (radius_count, XLA)", RADIUS_OPS_PER_PAIR, 4),
+            ("knn_select_k10", "slam_floor", "hdl_graph_slam_tpu/ops/knn.py:99 (knn, XLA top_k) at k=10, "
+                                             "ops/normals.py:36", OPS_PER_PAIR, 80),
+            ("knn_select_k21", "host_statistical", "hdl_graph_slam_tpu/ops/knn.py:99 (knn, XLA top_k) at k=21, "
+                                                   "ops/filters.py:56", OPS_PER_PAIR, 168)):
+        r = fres[name]
+        ops_s = r["valid_pairs"] * ops / peak_flops
+        bytes_s = (r["n"] * 12 + r["m"] * 12 + r["n"] * out_per_row) / HBM_BYTES_PER_S
+        line.append(dict(
+            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=replaces,
+            launches=launches[path][name], launches_by_path={p: v[name] for p, v in launches.items() if name in v},
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
+            host_ms=r["host_ms"], plain_ms=r["plain_ms"],
+            bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
+            library_ms=None, shape=f"{r['n']}x{r['m']} ({r['case']})", valid_pairs=r["valid_pairs"],
+            resident_warps_per_sm=r["launch"]["resident_warps_per_sm"], grid_blocks=r["launch"]["grid_blocks"],
+            dynamic_smem_bytes=r["launch"]["dynamic_smem_bytes"], stage_rows=r["launch"]["stage_rows"],
+            registers_per_thread=r["launch"]["registers_per_thread"],
+        ))
     return line
 
 
@@ -874,6 +1277,7 @@ def main(argv=None) -> int:
     from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
     from hdl_graph_slam_tpu_torch.frontend import Prefilter
     from hdl_graph_slam_tpu_torch.ops import knn
+    from hdl_graph_slam_tpu_torch.utils import course
     from hdl_graph_slam_tpu_torch.utils.course import BENCH_FRAMES, BENCH_RAW_CAPACITY, BENCH_STEP, make_course
 
     dev = torch.device("cuda")
@@ -984,11 +1388,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    knn.nn1.launches = 0
-    knn.knn_select.launches = 0
+    reset_launches(knn)
     state0, odoms, status, dt = drive_window(win, first, xyz, mask, stamps)
     conv = status["converged"].cpu().numpy()
-    launches["main"] = {"nn1": knn.nn1.launches, "knn_select": knn.knn_select.launches}
+    launches["main"] = read_launches(knn)
 
     dist = BENCH_STEP * BENCH_FRAMES
     Rs = odoms[:, :3, :3].astype(np.float64)
@@ -1017,17 +1420,30 @@ def main(argv=None) -> int:
     # -- 5. golden_town course (host ray casting in a process pool) ----------
     golden = golden_course_phase()
 
-    # -- 6. batched kernels at the loop shapes --------------------------------
-    bres = kernel_batched_phase(knn, golden)
+    # -- 6. batched kernels at the loop shapes; the filter kernels; floor ----------
+    keyframes = golden_keyframes(golden)
+    bres = kernel_batched_phase(knn, golden, keyframes)
+    fres = kernel_filters_phase(knn, keyframes, [c[0] for c in clouds], rng)
+    floor_phase(keyframes)
 
     # -- 7. pose graph, card vs CPU ---------------------------------------------
     graph_phase()
 
     # -- 8. golden_town SLAM on the card ---------------------------------------------
-    launches["slam"] = slam_phase(knn, golden)
+    slam = slam_phase(knn, golden)
+    launches["slam"] = slam["launches"]
+    slam_profile(slam["pipe"], slam["frames"])
 
-    # -- 9. kernels line ------------------------------------------------------
-    emit({"kernels": kernels_line(kres, bres, launches, peak_flops)})
+    # -- 9. golden_town floor through run_windowed ------------------------------------
+    launches["slam_floor"] = slam_phase(knn, golden, phase="slam_floor", cfg=course.golden_town_config("floor"),
+                                        required=("nn1", "knn_select", "nn1_batched", "knn_select_batched",
+                                                  "knn_select_k10"))["launches"]
+
+    # -- 10. the per-frame path: run() with the outdoor filters -------------------------
+    launches.update(host_phase(knn, golden))
+
+    # -- 11. kernels line ------------------------------------------------------
+    emit({"kernels": kernels_line(kres, bres, fres, launches, peak_flops)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,7 +13,23 @@
 // knn_select_kernel replaces the XLA lowering of ops/knn.py knn_approx
 // (lax.approx_min_k) as GICP preprocessing calls it: the exact k nearest
 // targets of each query, ordered by (d, index), with the distance d + |q|^2
-// of the centred coordinates.
+// of the centred coordinates. It is instantiated for k = 20 (GICP's
+// covariances), 10 (the floor detector's normals) and 21 (the statistical
+// outlier filter's mean_k + 1); ops/knn.py::knn adds the exact rescore of
+// the XLA ops/knn.py knn (top_k) on top of it.
+//
+// radius_count_kernel replaces the XLA ops/knn.py radius_count: for each
+// query the number of targets with squared distance strictly below r^2, the
+// query itself included when it is a target. The distance is the exact
+// difference form (3 subtractions and an FMA chain on uncentred
+// coordinates), not the expanded |q|^2 - 2 q.t + |t|^2 of the XLA op, so
+// the two can differ only for pairs within rounding of r^2. Skeleton of
+// nn1: persistent grid, 64 queries per block task (two per lane), warp w
+// counts the w-th slice of the staged targets, the 32 partial counts of a
+// query summed through shared memory. No sort, no selection. Bound: at the
+// radius filter's N = M = 4096, 16.8 M pairs of 10 fp32 operations
+// (3 FSUB, FMUL, 2 FFMA, a compare and an add), 2.5 us at 67 TFLOP/s; the
+// 96 KB of inputs move in 0.03 us.
 //
 // Bound. At the main path's N = M = 8192 both kernels do N*M = 67 M pairs of
 // 3 FMAs plus a compare and move only (N + M) * 12 bytes in and N * (8 or 8k)
@@ -104,7 +120,6 @@ namespace {
 
 constexpr float kValidAbs = 1.0e5f;    // |coordinate| bound of a valid target
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kK = 20;                 // knn_select's k (GICP's correspondence_randomness)
 constexpr int kThreads = 1024;         // threads per block, both kernels
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerThread = 8;      // staged rows a thread holds while the centre is reduced
@@ -116,6 +131,10 @@ constexpr int kNnScratch = kWarps * kNnChunk * (int)sizeof(float2);  // partial 
 constexpr int kSelQ = 2;               // knn_select: queries per warp
 constexpr int kSelBack = 64;           // knn_select: rows scanned before the group's own row
 constexpr int kSelScratch = kWarps * kSelQ * 32 * (int)sizeof(float2);  // candidate buffers
+
+constexpr int kRcQ = 2;                // radius_count: queries per lane
+constexpr int kRcChunk = 32 * kRcQ;    // radius_count: queries per block task
+constexpr int kRcScratch = kWarps * kRcChunk * (int)sizeof(int);  // partial counts
 
 __device__ __forceinline__ bool lex_less(float d, int i, float d2, int i2) {
   return d < d2 || (d == d2 && i < i2);
@@ -527,6 +546,65 @@ knn_select_kernel(const float* __restrict__ q, int n, const float* __restrict__ 
   }
 }
 
+// -- radius_count ---------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 1)
+radius_count_kernel(const float* __restrict__ q, int n, const float* __restrict__ t, int m, int stage_rows,
+                    float r2, int* __restrict__ out) {
+  extern __shared__ float4 smem[];
+  float4* cloud = smem;
+  int* part = reinterpret_cast<int*>(smem + stage_rows);  // [kWarps][kRcChunk]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float origin[3] = {0.0f, 0.0f, 0.0f};  // the difference form needs no centring
+  const int nstages = (m + stage_rows - 1) / stage_rows;
+  int loaded = -1;
+
+  const int chunks = (n + kRcChunk - 1) / kRcChunk;
+  for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+    float qx[kRcQ], qy[kRcQ], qz[kRcQ];
+    int cnt[kRcQ];
+#pragma unroll
+    for (int r = 0; r < kRcQ; ++r) {
+      const int qr = min(chunk * kRcChunk + lane + 32 * r, n - 1);
+      qx[r] = q[3 * qr];
+      qy[r] = q[3 * qr + 1];
+      qz[r] = q[3 * qr + 2];
+      cnt[r] = 0;
+    }
+    for (int st = 0; st < nstages; ++st) {
+      const int base = st * stage_rows, rows = min(stage_rows, m - base);
+      if (loaded != st) {
+        stage_next(t, base, rows, cloud, origin);
+        loaded = st;
+      }
+      const int per = (rows + kWarps - 1) / kWarps;
+      const int lo = min(rows, warp * per), hi = min(rows, lo + per);
+#pragma unroll 4
+      for (int j = lo; j < hi; ++j) {
+        const float4 p = cloud[j];
+#pragma unroll
+        for (int r = 0; r < kRcQ; ++r) {
+          const float dx = qx[r] - p.x, dy = qy[r] - p.y, dz = qz[r] - p.z;
+          cnt[r] += fmaf(dx, dx, fmaf(dy, dy, dz * dz)) < r2;
+        }
+      }
+    }
+    // sum the kWarps partial counts of each query: 16 consecutive threads
+    // per query, two partials each, then a 16-lane shuffle tree
+#pragma unroll
+    for (int r = 0; r < kRcQ; ++r) part[warp * kRcChunk + lane + 32 * r] = cnt[r];
+    __syncthreads();
+    constexpr int kSubs = kThreads / kRcChunk;
+    const int ql = threadIdx.x / kSubs, sub = threadIdx.x % kSubs;
+    int total = 0;
+    for (int w = sub; w < kWarps; w += kSubs) total += part[w * kRcChunk + ql];
+    for (int s = kSubs / 2; s > 0; s >>= 1) total += __shfl_down_sync(kFull, total, s, kSubs);
+    const int qi = chunk * kRcChunk + ql;
+    if (sub == 0 && qi < n) out[qi] = total;
+    __syncthreads();  // part is rewritten by the next task
+  }
+}
+
 // -- launch plans -------------------------------------------------------------
 
 struct Plan {
@@ -535,7 +613,9 @@ struct Plan {
 
 // What the runtime reports for a kernel on a device does not change, so each
 // (device, kernel, staged rows) is planned once and a launch only looks its
-// plan up. The lock covers callers on several host threads.
+// plan up. The kernel is its function pointer, so each instantiation of
+// knn_select_kernel (each K) has plans of its own. The lock covers callers
+// on several host threads.
 std::mutex g_plans_mu;
 std::map<std::tuple<int, const void*, int>, std::pair<Plan, int>> g_plans;  // -> (plan, SMs)
 
@@ -587,10 +667,24 @@ cudaError_t plan_nn1(int n, int m, int batch, Plan* p) {
   return make_plan((const void*)nn1_kernel, kThreads, kNnScratch, m, (n + kNnChunk - 1) / kNnChunk, batch, p);
 }
 
-cudaError_t plan_knn_select(int n, int m, int batch, Plan* p) {
+// The instantiation of knn_select_kernel for k, or null for a k it is not
+// built for.
+const void* knn_select_fn(int k) {
+  switch (k) {
+    case 10: return (const void*)knn_select_kernel<10>;
+    case 20: return (const void*)knn_select_kernel<20>;
+    case 21: return (const void*)knn_select_kernel<21>;
+    default: return nullptr;
+  }
+}
+
+cudaError_t plan_knn_select(const void* fn, int n, int m, int batch, Plan* p) {
   const int groups = (n + kSelQ - 1) / kSelQ;
-  return make_plan((const void*)knn_select_kernel<kK>, kThreads, kSelScratch, m,
-                   (groups + kWarps - 1) / kWarps, batch, p);
+  return make_plan(fn, kThreads, kSelScratch, m, (groups + kWarps - 1) / kWarps, batch, p);
+}
+
+cudaError_t plan_radius_count(int n, int m, Plan* p) {
+  return make_plan((const void*)radius_count_kernel, kThreads, kRcScratch, m, (n + kRcChunk - 1) / kRcChunk, 1, p);
 }
 
 constexpr int kMaxBatch = 65535;  // gridDim.y
@@ -600,6 +694,21 @@ constexpr int kMaxBatch = 65535;  // gridDim.y
 int failed(cudaError_t e) {
   cudaGetLastError();
   return (int)e;
+}
+
+// B problems of knn_select at k (one of 10, 20, 21), m >= k.
+int launch_knn_select(const float* q, int batch, int n, const float* t, int m, int k, int* idx, float* dist,
+                      void* stream) {
+  const void* fn = knn_select_fn(k);
+  if (fn == nullptr || n <= 0 || m < k || batch <= 0 || batch > kMaxBatch) return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t e = plan_knn_select(fn, n, m, batch, &p);
+  if (e != cudaSuccess) return failed(e);
+  int stage_rows = p.stage_rows;
+  void* args[] = {&q, &n, &t, &m, &stage_rows, &idx, &dist};
+  e = cudaLaunchKernel(fn, dim3(p.grid, batch), dim3(p.threads), args, p.smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return failed(e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -628,38 +737,41 @@ int hgs_nn1_batched(const float* q, int batch, int n, const float* t, int m, int
   return (int)cudaGetLastError();
 }
 
-// k must equal kK (20); m >= k.
+// k is one of 10, 20, 21; m >= k.
 int hgs_knn_select(const float* q, int n, const float* t, int m, int k, int* idx, float* dist, void* stream) {
-  if (n <= 0 || k != kK || m < kK) return (int)cudaErrorInvalidValue;
-  Plan p;
-  const cudaError_t e = plan_knn_select(n, m, 1, &p);
-  if (e != cudaSuccess) return failed(e);
-  knn_select_kernel<kK><<<p.grid, p.threads, p.smem, (cudaStream_t)stream>>>(q, n, t, m, p.stage_rows, idx, dist);
-  return (int)cudaGetLastError();
+  return launch_knn_select(q, 1, n, t, m, k, idx, dist, stream);
 }
 
 // B problems: q (B, n, 3) against t (B, m, 3) -> idx, dist (B, n, k).
 int hgs_knn_select_batched(const float* q, int batch, int n, const float* t, int m, int k, int* idx, float* dist,
                            void* stream) {
-  if (n <= 0 || k != kK || m < kK || batch <= 0 || batch > kMaxBatch) return (int)cudaErrorInvalidValue;
+  return launch_knn_select(q, batch, n, t, m, k, idx, dist, stream);
+}
+
+// out[i] = #{j : |q_i - t_j|^2 < r2}, q (n, 3) and t (m, 3).
+int hgs_radius_count(const float* q, int n, const float* t, int m, float r2, int* out, void* stream) {
+  if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t e = plan_knn_select(n, m, batch, &p);
+  const cudaError_t e = plan_radius_count(n, m, &p);
   if (e != cudaSuccess) return failed(e);
-  knn_select_kernel<kK><<<dim3(p.grid, batch), p.threads, p.smem, (cudaStream_t)stream>>>(q, n, t, m, p.stage_rows,
-                                                                                          idx, dist);
+  radius_count_kernel<<<p.grid, p.threads, p.smem, (cudaStream_t)stream>>>(q, n, t, m, p.stage_rows, r2, out);
   return (int)cudaGetLastError();
 }
 
-// The launch plan of kernel `which` (0 = nn1, 1 = knn_select) at (n, m) and a
-// batch of `batch` problems on the current device: out = [resident blocks per
-// SM, threads per block, dynamic shared memory bytes, grid blocks per
-// problem, registers per thread, staged rows, static shared memory bytes].
-// Returns a cudaError_t (0 = ok).
-int hgs_knn_launch_info_batched(int which, int batch, int n, int m, int* out) {
-  if (n <= 0 || m <= 0 || (which != 0 && which != 1) || batch <= 0 || batch > kMaxBatch)
+// The launch plan of kernel `which` (0 = nn1, 1 = knn_select at k, 2 =
+// radius_count, unbatched only) at (n, m) and a batch of `batch` problems on
+// the current device: out = [resident blocks per SM, threads per block,
+// dynamic shared memory bytes, grid blocks per problem, registers per
+// thread, staged rows, static shared memory bytes]. Returns a cudaError_t
+// (0 = ok).
+int hgs_knn_launch_info_batched(int which, int batch, int n, int m, int k, int* out) {
+  if (n <= 0 || m <= 0 || which < 0 || which > 2 || batch <= 0 || batch > kMaxBatch || (which == 2 && batch != 1))
     return (int)cudaErrorInvalidValue;
+  if (which == 1 && knn_select_fn(k) == nullptr) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t e = which == 0 ? plan_nn1(n, m, batch, &p) : plan_knn_select(n, m, batch, &p);
+  const cudaError_t e = which == 0   ? plan_nn1(n, m, batch, &p)
+                        : which == 1 ? plan_knn_select(knn_select_fn(k), n, m, batch, &p)
+                                     : plan_radius_count(n, m, &p);
   if (e != cudaSuccess) return failed(e);
   const int v[7] = {p.blocks_per_sm, p.threads, p.smem, p.grid, p.regs, p.stage_rows, p.static_smem};
   for (int j = 0; j < 7; ++j) out[j] = v[j];

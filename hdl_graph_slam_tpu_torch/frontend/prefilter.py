@@ -2,8 +2,8 @@
 (port of hdl_graph_slam_tpu/frontend/prefilter.py).
 
 PrefilteringNodelet (apps/prefiltering_nodelet.cpp:106-243): optional IMU
-deskewing, base_link transform, distance band-pass, voxel downsample. The
-outlier-removal filters are a later slice of the port.
+deskewing, base_link transform, distance band-pass, voxel downsample,
+outlier removal (STATISTICAL or RADIUS).
 """
 
 from __future__ import annotations
@@ -22,11 +22,6 @@ from ..ops import filters, voxel
 def make_prefilter_fn(cfg: PrefilterConfig, out_capacity: int):
     """The prefilter chain for ``cfg`` as a function of
     (cloud, base_to_sensor, ang_vel)."""
-    if cfg.outlier_removal_method not in ("NONE", None):
-        raise NotImplementedError(
-            f"outlier_removal_method={cfg.outlier_removal_method!r}: the outlier filters are "
-            "ROADMAP Queue 1 item 10 of the port"
-        )
     # Static routing: after the distance filter every point lies within
     # distance_far_thresh of the base origin, so if 2*far/res (+slack) fits
     # the 1024-cell local grid the downsample uses int32 keys with identical
@@ -47,6 +42,10 @@ def make_prefilter_fn(cfg: PrefilterConfig, out_capacity: int):
             cloud = downsample(cloud, cfg.downsample_resolution, max_voxels=out_capacity)
         else:
             cloud = cloudlib.compact(cloud, capacity=out_capacity)
+        if cfg.outlier_removal_method == "STATISTICAL":
+            cloud = filters.statistical_outlier_removal(cloud, cfg.statistical_mean_k, cfg.statistical_stddev)
+        elif cfg.outlier_removal_method == "RADIUS":
+            cloud = filters.radius_outlier_removal(cloud, cfg.radius_radius, cfg.radius_min_neighbors)
         return cloud
 
     return run

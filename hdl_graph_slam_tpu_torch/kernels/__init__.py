@@ -85,7 +85,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.hgs_nn1_batched.restype = i
         lib.hgs_knn_select_batched.argtypes = [p, i, i, p, i, i, p, p, p]
         lib.hgs_knn_select_batched.restype = i
-        lib.hgs_knn_launch_info_batched.argtypes = [i, i, i, i, p]
+        lib.hgs_radius_count.argtypes = [p, i, p, i, ctypes.c_float, p, p]
+        lib.hgs_radius_count.restype = i
+        lib.hgs_knn_launch_info_batched.argtypes = [i, i, i, i, i, p]
         lib.hgs_knn_launch_info_batched.restype = i
 
 

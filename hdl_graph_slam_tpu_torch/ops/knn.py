@@ -1,15 +1,19 @@
 """Exact brute-force nearest-neighbour search (port of hdl_graph_slam_tpu/ops/knn.py
 and of the TPU kernel hdl_graph_slam_tpu/ops/pallas_nn.py).
 
-Two functions have hand-written Hopper kernels (csrc/knn.cu), each with its
+Three functions have hand-written Hopper kernels (csrc/knn.cu), each with its
 plain PyTorch twin here:
 
 - ``nn1``: exact 1-NN, the function of the TPU kernel ``nn1_pallas`` and of
   the XLA ``nn1``. GICP association runs it at every re-association.
-- ``knn_select``: the exact k nearest neighbours, the port's counterpart of
-  ``knn_approx`` as GICP preprocessing calls it (neighbour set only, with the
-  expanded-form distances). Exact selection is a superset of the 0.85 recall
-  ``knn_approx`` guarantees.
+- ``knn_select``: the exact k nearest neighbours (k = 10, 20 or 21 on the
+  card), the port's counterpart of ``knn_approx`` as GICP preprocessing
+  calls it (neighbour set only, with the expanded-form distances). Exact
+  selection is a superset of the 0.85 recall ``knn_approx`` guarantees.
+  ``knn`` (the XLA ``knn``: floor normals, the statistical outlier filter)
+  is ``knn_select`` plus an exact rescore in plain PyTorch.
+- ``radius_count``: targets strictly within a radius (the radius outlier
+  filter).
 
 Both also have a batched form (``nn1_batched``, ``knn_select_batched``): B
 independent problems, each query set against its own target, in one launch
@@ -18,7 +22,8 @@ share one target flatten them into one unbatched call instead.
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+counts its kernel launches in ``<wrapper>.launches``; ``knn_select`` also
+counts them per k in ``knn_select.launches_k``.
 
 Selection arithmetic (both versions): coordinates are centred on the bounding
 box of the valid targets (|x| < 1e5 on every axis) and ranked by
@@ -107,7 +112,9 @@ def nn1(query: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.
 nn1.launches = 0
 
 
-KNN_SELECT_K = 20  # the k the kernel is compiled for (GICP's correspondence_randomness)
+# the k the kernel is compiled for: GICP's correspondence_randomness (20), the
+# floor normals (10) and the statistical outlier filter's mean_k + 1 (21)
+KNN_SELECT_KS = (10, 20, 21)
 
 
 def _lex_key(d: torch.Tensor) -> torch.Tensor:
@@ -156,8 +163,8 @@ def knn_select(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch
         return knn_select_plain(query, target, k)
     if query.device.type != "cuda":
         raise ValueError(f"knn_select: unsupported device {query.device}")
-    if k != KNN_SELECT_K:
-        raise ValueError(f"knn_select: the kernel is built for k={KNN_SELECT_K}, not {k}")
+    if k not in KNN_SELECT_KS:
+        raise ValueError(f"knn_select: the kernel is built for k in {KNN_SELECT_KS}, not {k}")
     query, target = query.contiguous(), target.contiguous()
     n, m = query.shape[0], target.shape[0]
     idx = torch.empty((n, k), dtype=torch.int32, device=query.device)
@@ -167,10 +174,12 @@ def knn_select(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch
     kernels.check(lib.hgs_knn_select(query.data_ptr(), n, target.data_ptr(), m, k,
                                      idx.data_ptr(), dist.data_ptr(), stream), "knn_select")
     knn_select.launches += 1
+    knn_select.launches_k[k] += 1
     return idx, dist
 
 
 knn_select.launches = 0
+knn_select.launches_k = dict.fromkeys(KNN_SELECT_KS, 0)
 
 
 def _check_batched(name: str, query: torch.Tensor, target: torch.Tensor) -> None:
@@ -238,8 +247,8 @@ def knn_select_batched(query: torch.Tensor, target: torch.Tensor, k: int) -> Tup
         return knn_select_batched_plain(query, target, k)
     if query.device.type != "cuda":
         raise ValueError(f"knn_select_batched: unsupported device {query.device}")
-    if k != KNN_SELECT_K:
-        raise ValueError(f"knn_select_batched: the kernel is built for k={KNN_SELECT_K}, not {k}")
+    if k not in KNN_SELECT_KS:
+        raise ValueError(f"knn_select_batched: the kernel is built for k in {KNN_SELECT_KS}, not {k}")
     query, target = query.contiguous(), target.contiguous()
     b, n, m = query.shape[0], query.shape[1], target.shape[1]
     idx = torch.empty((b, n, k), dtype=torch.int32, device=query.device)
@@ -254,14 +263,14 @@ def knn_select_batched(query: torch.Tensor, target: torch.Tensor, k: int) -> Tup
 knn_select_batched.launches = 0
 
 
-def launch_info(kernel: str, n: int, m: int, batch: int = 1) -> dict:
-    """The launch plan the C entry point makes for ``kernel`` ("nn1" or
-    "knn_select") at n queries and m targets (per problem of a batch of
-    ``batch``) on the current CUDA device, with the occupancy the runtime
-    reports for it; ``grid_blocks`` is per problem."""
-    which = {"nn1": 0, "knn_select": 1}[kernel]
+def launch_info(kernel: str, n: int, m: int, batch: int = 1, k: int = 20) -> dict:
+    """The launch plan the C entry point makes for ``kernel`` ("nn1",
+    "knn_select" at ``k`` or "radius_count") at n queries and m targets (per
+    problem of a batch of ``batch``) on the current CUDA device, with the
+    occupancy the runtime reports for it; ``grid_blocks`` is per problem."""
+    which = {"nn1": 0, "knn_select": 1, "radius_count": 2}[kernel]
     out = (ctypes.c_int * 7)()
-    kernels.check(kernels.load("knn").hgs_knn_launch_info_batched(which, batch, n, m, ctypes.addressof(out)),
+    kernels.check(kernels.load("knn").hgs_knn_launch_info_batched(which, batch, n, m, k, ctypes.addressof(out)),
                   f"{kernel} launch info")
     keys = ("blocks_per_sm", "threads_per_block", "dynamic_smem_bytes", "grid_blocks", "registers_per_thread",
             "stage_rows", "static_smem_bytes")
@@ -270,22 +279,57 @@ def launch_info(kernel: str, n: int, m: int, batch: int = 1) -> dict:
     return info
 
 
-def knn(query: torch.Tensor, target: torch.Tensor, k: int, chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact k-NN indices and exact squared distances, ascending (plain
-    PyTorch on any device): query (N,3), target (M,3) -> (N,k) int32, (N,k)."""
-    center = _bbox_center(target)
-    tc = target - center
-    t_norm2 = (tc * tc).sum(-1)
-    idx, dist = [], []
+def knn(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN indices and exact squared distances, ascending: query
+    (N,3), target (M,3) -> (N,k) int32, (N,k). The XLA ``knn``'s semantics:
+    the k nearest by the bbox-centred expanded form, lowest index on ties,
+    then the exact difference-form squared distances, stably sorted.
+
+    The selection is ``knn_select``: on CUDA tensors its kernel (k must be
+    one of ``KNN_SELECT_KS``), on CPU tensors its plain twin. The rescore
+    (gather, exact d², stable sort) is plain PyTorch on either."""
+    cand, _ = knn_select(query, target, k)
+    diff = query[:, None, :] - target[cand.long()]
+    d_sorted, order = torch.sort((diff * diff).sum(-1), dim=-1, stable=True)
+    return torch.gather(cand, -1, order), d_sorted
+
+
+def radius_count_plain(query: torch.Tensor, target: torch.Tensor, radius: float,
+                       chunk: int = 512) -> torch.Tensor:
+    """Plain twin of ``radius_count``: the same difference form on the
+    uncentred coordinates against the same float32 r²."""
+    r2 = radius * radius  # compared with float32 distances: rounded to float32, as the kernel's argument
+    out = []
     for q in torch.split(query, chunk):
-        d = -2.0 * ((q - center) @ tc.T) + t_norm2
-        cand = torch.topk(d, k, dim=-1, largest=False, sorted=True).indices
-        diff = q[:, None, :] - target[cand]
-        d_exact = (diff * diff).sum(-1)
-        d_sorted, order = torch.sort(d_exact, dim=-1, stable=True)
-        idx.append(torch.gather(cand, -1, order).to(torch.int32))
-        dist.append(d_sorted)
-    return torch.cat(idx), torch.cat(dist)
+        diff = q[:, None, :] - target[None, :, :]
+        out.append(((diff * diff).sum(-1) < r2).sum(-1, dtype=torch.int32))
+    return torch.cat(out)
+
+
+def radius_count(query: torch.Tensor, target: torch.Tensor, radius: float) -> torch.Tensor:
+    """Number of targets strictly within ``radius`` of each query row, a
+    coincident target (the query itself) included, as PCL's radiusSearch
+    counts it: (N,3), (M,3) -> (N,) int32.
+
+    The squared distance is the exact difference form, where the XLA op
+    expands |q|² − 2 q·t + |t|²; the two differ only for pairs within the
+    expanded form's rounding of r²."""
+    _check("radius_count", query, target)
+    if query.device.type == "cpu":
+        return radius_count_plain(query, target, radius)
+    if query.device.type != "cuda":
+        raise ValueError(f"radius_count: unsupported device {query.device}")
+    query, target = query.contiguous(), target.contiguous()
+    n, m = query.shape[0], target.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=query.device)
+    lib = kernels.load("knn")
+    kernels.check(lib.hgs_radius_count(query.data_ptr(), n, target.data_ptr(), m, radius * radius, out.data_ptr(),
+                                       _stream(query)), "radius_count")
+    radius_count.launches += 1
+    return out
+
+
+radius_count.launches = 0
 
 
 def fitness_score(

@@ -39,8 +39,9 @@ class Registration:
     """Stateful wrapper: the target is preprocessed once per set_target, as
     pcl::Registration::setInputTarget (scan_matching_odometry_nodelet.cpp:250)."""
 
-    def __init__(self, cfg: Optional[RegistrationConfig] = None):
+    def __init__(self, cfg: Optional[RegistrationConfig] = None, max_voxels: int = 8192):
         self.cfg = cfg or RegistrationConfig()
+        self.max_voxels = max_voxels  # the target voxel capacity of VGICP and NDT (items 7-8); GICP has none
         self.method = method_of(self.cfg)
         self._target_cloud: Optional[PointCloud] = None
         self._target_state: Optional[gicp.GicpCloud] = None

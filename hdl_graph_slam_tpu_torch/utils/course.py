@@ -41,7 +41,7 @@ def make_course(n_frames: int = BENCH_FRAMES, step: float = BENCH_STEP, seed: in
     return scans
 
 
-# -- benchmarks/golden_town.py's course, "base" mode ----------------------------
+# -- benchmarks/golden_town.py's course, "base" and "floor" modes ----------------
 
 GOLDEN_CLOUD_CAPACITY = 4096
 GOLDEN_RAW_CAPACITY = 16384
@@ -68,12 +68,18 @@ def golden_town_scene():
     return town, model
 
 
-def golden_town_config():
-    """benchmarks/golden_town.py make_cfg("base"): FAST_GICP odometry and
-    loop matching with 0.1 m gated re-association, 0.5 m voxels out to 60
-    m, 4 m keyframes, the reference's outdoor loop gates (15 / 25 / 15 m,
-    fitness 2.5), 60 LM iterations per cycle, a 10 s cycle, floor off."""
+def golden_town_config(mode: str = "base"):
+    """benchmarks/golden_town.py make_cfg(mode), mode "base" or "floor".
+    base: FAST_GICP odometry and loop matching with 0.1 m gated
+    re-association, 0.5 m voxels out to 60 m, 4 m keyframes, the
+    reference's outdoor loop gates (15 / 25 / 15 m, fitness 2.5), 60 LM
+    iterations per cycle, a 10 s cycle, floor off. floor
+    (golden_town.py:94-101): floor detection on, sensor height 1.8 m, a
+    1 m clip band, 256 floor points at least."""
     from ..core.config import RegistrationConfig, SlamConfig
+
+    if mode not in ("base", "floor"):
+        raise ValueError(f"golden_town mode {mode!r}: the port has base and floor")
 
     reg = RegistrationConfig(registration_method="FAST_GICP", reg_reassoc_displacement=0.1)
     cfg = SlamConfig()
@@ -93,5 +99,20 @@ def golden_town_config():
     cfg.loop.accum_distance_thresh = 25.0
     cfg.loop.min_edge_interval = 15.0
     cfg.loop.fitness_score_thresh = 2.5
-    cfg.floor.enabled = False
+    cfg.floor.enabled = mode == "floor"
+    if mode == "floor":
+        cfg.floor.sensor_height = GOLDEN_SENSOR_HEIGHT
+        cfg.floor.height_clip_range = 1.0
+        cfg.floor.floor_pts_thresh = 256
+    return cfg
+
+
+def golden_town_outdoor_config():
+    """golden_town "floor" with the outdoor (hdl_400) preset's prefilter
+    outlier filter (core/config.py preset_outdoor): RADIUS, 0.8 m, at least
+    2 neighbours."""
+    cfg = golden_town_config("floor")
+    cfg.prefilter.outlier_removal_method = "RADIUS"
+    cfg.prefilter.radius_radius = 0.8
+    cfg.prefilter.radius_min_neighbors = 2
     return cfg

@@ -47,6 +47,17 @@ def test_rows_valid_rejects_a_farther_neighbour(kind):
     assert valid < 0.01 and excess > 1e3 * chip_smoke.ROW_ULPS
 
 
+def test_rows_valid_rejects_a_duplicated_neighbour():
+    """A row that names its (k-1)-th neighbour twice and drops the k-th
+    passes the distance test (the largest chosen distance is not above the
+    dropped one) and must fail as a repeat."""
+    q, t, rows = clouds(65)
+    idx = knn.knn_select_plain(q, t, 20)[0]
+    dup = torch.cat([idx[:, :19], idx[:, 18:19]], 1)
+    valid, excess = chip_smoke.rows_valid(q, t, dup, rows)
+    assert valid == 0.0 and excess <= 0.0
+
+
 def test_rows_valid_with_all_targets_chosen():
     q, t, rows = clouds(62, m=20, n_pad=0)
     idx = knn.knn_select_plain(q, t, 20)[0]
@@ -148,3 +159,98 @@ def test_golden_town_course_is_the_benchmark_course():
     cfg = course.golden_town_config()
     assert (cfg.loop.distance_thresh, cfg.loop.accum_distance_thresh, cfg.loop.min_edge_interval,
             cfg.loop.fitness_score_thresh, cfg.backend.g2o_solver_num_iterations) == (15.0, 25.0, 15.0, 2.5, 60)
+
+
+# -- the filter, floor and per-frame phases' helpers ---------------------------------
+
+
+@pytest.mark.parametrize("case", ["uniform", "lattice"])
+def test_check_radius_gates_plain_counts(monkeypatch, case):
+    """check_radius passes the plain twin (radius_count on the CPU) against
+    float64 counts, on every row of an integer lattice at r = 1, and fails
+    counts off by one."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    if case == "uniform":
+        q, t, rows = clouds(64, n=300, m=900)
+        r, exact = 12.0, False
+    else:
+        g = torch.arange(6, dtype=torch.float32)
+        q = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+        q = t = torch.cat([q, q[::7]])  # duplicates: pairs at d^2 = 0 < 1, none at 1
+        rows, r, exact = torch.ones(q.shape[0], dtype=torch.bool), 1.0, True
+    row = chip_smoke.check_radius(knn, q, t, r, rows, case, exact_ties=exact)
+    assert row["rows_off_float64"] == 0 and row["idx_identical"] and row["mean_count"] > 1.0
+    monkeypatch.setattr(knn, "radius_count", lambda q_, t_, r_: knn.radius_count_plain(q_, t_, r_) + 1)
+    with pytest.raises(RuntimeError):
+        chip_smoke.check_radius(knn, q, t, r, rows, "broken", exact_ties=exact)
+
+
+def test_exact_radius_counts_flags_pairs_at_the_radius():
+    """A pair at exactly r is within rounding of r^2; one clear of it is not."""
+    q = torch.tensor([[0.0, 0.0, 0.0], [10.0, 0.0, 0.0]])
+    t = torch.tensor([[0.0, 0.0, 0.0], [0.5, 0.0, 0.0], [10.3, 0.0, 0.0]])
+    counts, near = chip_smoke.exact_radius_counts(q, t, 0.5)
+    assert counts.tolist() == [1, 1] and near.tolist() == [True, False]
+
+
+def test_launch_counts_read_per_kernel_entry():
+    """read_launches reports knn_select per k, its GICP k = 20 under the
+    plain name; reset_launches zeroes every counter."""
+    knn.radius_count.launches = 5
+    knn.knn_select.launches_k = {10: 2, 20: 3, 21: 4}
+    got = chip_smoke.read_launches(knn)
+    assert (got["knn_select"], got["knn_select_k10"], got["knn_select_k21"], got["radius_count"]) == (3, 2, 4, 5)
+    chip_smoke.reset_launches(knn)
+    assert set(chip_smoke.read_launches(knn).values()) == {0}
+
+
+def test_floor_band_is_the_detectors_clip():
+    """floor_band keeps z strictly inside (-h - range, -h + range), as the
+    floor detector's two plane clips do."""
+    from hdl_graph_slam_tpu_torch.core import cloud
+
+    z = np.array([-3.0, -2.79, -2.0, -1.8, -0.81, -0.5, 1.0], np.float32)
+    xyz = np.stack([np.zeros_like(z), np.zeros_like(z), z], 1)
+    band = chip_smoke.floor_band(cloud.from_numpy(xyz, capacity=8, device="cpu"))
+    assert band.mask.tolist() == [False, True, True, True, True, False, False, False]
+
+
+def test_golden_town_floor_configs():
+    """golden_town.py make_cfg("floor") and the outdoor preset's RADIUS
+    filter on top of it (utils/course.py)."""
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    cfg = course.golden_town_config("floor")
+    assert cfg.floor.enabled and (cfg.floor.sensor_height, cfg.floor.height_clip_range,
+                                  cfg.floor.floor_pts_thresh) == (1.8, 1.0, 256)
+    assert cfg.prefilter.outlier_removal_method == "NONE" and not course.golden_town_config().floor.enabled
+    out = course.golden_town_outdoor_config()
+    assert out.floor.enabled and (out.prefilter.outlier_removal_method, out.prefilter.radius_radius,
+                                  out.prefilter.radius_min_neighbors) == ("RADIUS", 0.8, 2)
+    with pytest.raises(ValueError):
+        course.golden_town_config("gps")
+
+
+def test_check_knn_near_tie_gate(monkeypatch):
+    """With near_ties, check_knn passes sets that differ from the plain
+    twin's only by equally near neighbours (a lattice's ties, broken by
+    another index order) and fails a set holding a farther neighbour."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    g = torch.arange(5, dtype=torch.float32)
+    t = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    rows = torch.ones(t.shape[0], dtype=torch.bool)
+    plain = knn.knn_select_plain
+    # the same distances, highest index first among ties
+    flipped = lambda q_, t_, k_: tuple(x.flip(0) for x in plain(q_.flip(0), t_.flip(0), k_))  # noqa: E731
+
+    def tie_swapped(q_, t_, k_):
+        i, d = flipped(q_, t_, k_)
+        return (t_.shape[0] - 1 - i).int(), d
+
+    monkeypatch.setattr(knn, "knn_select", tie_swapped)
+    row = chip_smoke.check_knn(knn, t, t, rows, "ties", k=10, near_ties=True)
+    assert row["rows_identical_sets"] < 1.0 and row["plain_rows_valid_where_sets_differ"] == 1.0
+    monkeypatch.setattr(knn, "knn_select", lambda q_, t_, k_: (plain(q_, t_, k_ + 3)[0][:, 3:].contiguous(),
+                                                               plain(q_, t_, k_ + 3)[1][:, 3:].contiguous()))
+    with pytest.raises(RuntimeError):
+        chip_smoke.check_knn(knn, t, t, rows, "farther", k=10, near_ties=True)

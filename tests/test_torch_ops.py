@@ -401,5 +401,13 @@ class TestVoxel:
         np.testing.assert_allclose(out.xyz.numpy()[m], np.asarray(out_j.xyz)[m], atol=1e-5)
 
     def test_outlier_filters_not_in_this_slice(self):
-        with pytest.raises(NotImplementedError):
-            Prefilter(PrefilterConfig(outlier_removal_method="RADIUS"), device="cpu")
+        """Both outlier methods build and keep the same voxels as the JAX
+        prefilter (tests/test_torch_frontend.py holds each filter against
+        JAX)."""
+        pts = f32(sensor_scan(seed=5, n_max=3800))
+        for method in ("RADIUS", "STATISTICAL"):
+            cfg = dict(downsample_resolution=0.2, outlier_removal_method=method)
+            out = Prefilter(PrefilterConfig(**cfg), out_capacity=2048, device="cpu")(
+                cloud.from_numpy(pts, capacity=4096, device="cpu"))
+            out_j = JPrefilter(JPrefilterConfig(**cfg), out_capacity=2048)(jcloud.from_numpy(pts, capacity=4096))
+            np.testing.assert_array_equal(out.mask.numpy(), np.asarray(out_j.mask))

@@ -28,9 +28,10 @@ from hdl_graph_slam_tpu.registration import gicp as jgicp
 from hdl_graph_slam_tpu_torch import state as statelib
 from hdl_graph_slam_tpu_torch.core import cloud, se3
 from hdl_graph_slam_tpu_torch.core.config import OdometryConfig, PrefilterConfig, RegistrationConfig
-from hdl_graph_slam_tpu_torch.frontend import DeviceOdometry, OdometryWindow, Prefilter
+from hdl_graph_slam_tpu_torch.frontend import DeviceOdometry, FloorDetector, OdometryWindow, Prefilter, ScanMatchingOdometry
 from hdl_graph_slam_tpu_torch.frontend import odometry_device as odo
 from hdl_graph_slam_tpu_torch.frontend.window import stack_scans
+from hdl_graph_slam_tpu_torch.ops import knn
 from hdl_graph_slam_tpu_torch.registration import base, gicp
 from hdl_graph_slam_tpu_torch.utils import course
 
@@ -256,6 +257,8 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         lambda: DeviceOdometry(),
         lambda: Prefilter(PrefilterConfig(**PF)),
         lambda: cloud.from_numpy(np.zeros((4, 3), np.float32)),
+        lambda: FloorDetector(),
+        lambda: ScanMatchingOdometry(),
     ]
     if torch.cuda.is_available():
         assert OdometryWindow().device.type == "cuda"
@@ -265,3 +268,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
                 make()
     with pytest.raises(NotImplementedError):
         OdometryWindow(OdometryConfig(registration=RegistrationConfig(registration_method="NDT_OMP")), device="cpu")
+    # a kernel wrapper on a device that is neither the CPU nor CUDA raises
+    meta = torch.zeros(8, 3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        knn.radius_count(meta, meta, 0.5)
