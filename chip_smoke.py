@@ -81,8 +81,32 @@ before the last line:
            frames of a fresh pipeline. Then the STATISTICAL prefilter's path:
            run(device_odometry=True) over 48 frames against run_windowed,
            odometry within 1e-4.
-11. The kernels line (every kernel entry point), the card's name and power
-   limit, then the last line {"ok": true, "device": {...}}.
+11. cli    the offline CLI as a user runs it: golden_town's 601 raw scans
+           written as a KITTI sequence (float32 (N, 4) bins, times.txt with
+           the stamps float(i), a truth poses file), then ``python -m
+           hdl_graph_slam_tpu_torch.run --kitti ... --preset outdoor
+           --cloud-capacity 16384`` (the preset's 0.1 m voxels overflow 4096
+           rows, CLI_CLOUD_CAPACITY) with every output (trajectories, map,
+           dump, graph JSON, trace) in a child process on the card (through
+           runpy, as -m runs a module, so that it can hand its kernel launch
+           counts back). Gates: 601 frames; optimized ATE below the odometry
+           keyframes' ATE, both from the TUM files against the truth;
+           >= 2 loop edges and floor edges >= 0.9 x keyframes (graph JSON);
+           det/orth < 1e-4 on every dumped pose; a non-empty map of distinct
+           0.05 m voxel centres; every kernel of the path launched.
+12. persistence  that dump loaded on the card and on the CPU (the same
+           keyframes, node ids, stamps and edges; poses within the dump's
+           %.9g text), the map generated from it card against CPU, through
+           the one-capacity against the per-snapshot path, and against the
+           CLI's own map: voxels may differ only on both sides of a face that
+           some point lies on within float32 rounding (judged in float64 from
+           the same float32 pose and point); a re-dump's graph.g2o byte-
+           identical; run_windowed(overlap_backend=True) against the
+           synchronous run over 48 frames (odometry within 1e-6 m, final
+           poses within 1e-2 m), the wall time of both.
+13. The kernels line (every kernel entry point, with the cli path's
+   launches), the card's name and power limit, then the last line
+   {"ok": true, "device": {...}}.
 
 Phases run in that order, every one on the card.
 
@@ -151,7 +175,14 @@ GRAPH_POSE_ATOL = 1e-6
 GRAPH_CHI2_RTOL = 1e-9
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase row also gets ``at_s``, the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -1022,22 +1053,29 @@ def reset_launches(knn) -> None:
     knn.knn_select.launches_k = dict.fromkeys(knn.KNN_SELECT_KS, 0)
 
 
-def read_launches(knn) -> dict:
-    """Launches per kernel entry since reset_launches: knn_select per k, its
-    k = 20 (GICP) count under the plain name."""
-    out = {name: getattr(knn, name).launches for name in LAUNCH_COUNTERS}
-    out.update({f"knn_select_k{k}": v for k, v in knn.knn_select.launches_k.items() if k != K_NEIGHBOURS})
-    out["knn_select"] = knn.knn_select.launches_k[K_NEIGHBOURS]
+def format_launches(counts: dict, per_k: dict) -> dict:
+    """Launches per kernel entry: ``counts`` per counter of LAUNCH_COUNTERS,
+    ``per_k`` knn_select's per k; the k = 20 (GICP) count goes under the
+    plain name."""
+    out = {name: counts[name] for name in LAUNCH_COUNTERS}
+    out.update({f"knn_select_k{k}": v for k, v in per_k.items() if int(k) != K_NEIGHBOURS})
+    out["knn_select"] = {int(k): v for k, v in per_k.items()}[K_NEIGHBOURS]
     return out
+
+
+def read_launches(knn) -> dict:
+    """Launches per kernel entry since reset_launches."""
+    return format_launches({name: getattr(knn, name).launches for name in LAUNCH_COUNTERS}, knn.knn_select.launches_k)
 
 
 def golden_frames(golden, n=None) -> list:
     return [(float(i), x, None) for i, x in enumerate(golden["scans"][:n])]
 
 
-def run_golden(cfg, frames, per_frame: bool = False, device_odometry: bool = False):
+def run_golden(cfg, frames, per_frame: bool = False, device_odometry: bool = False, overlap_backend: bool = False):
     """A fresh pipeline on the card over golden_town frames: run() (per
-    frame) or run_windowed at the golden window and capacities."""
+    frame) or run_windowed at the golden window and capacities (with its
+    optimize cycles on a worker thread if ``overlap_backend``)."""
     import torch
     from hdl_graph_slam_tpu_torch.pipeline import SlamPipeline
     from hdl_graph_slam_tpu_torch.utils import course
@@ -1047,7 +1085,8 @@ def run_golden(cfg, frames, per_frame: bool = False, device_odometry: bool = Fal
     if per_frame:
         result = pipe.run(frames)
     else:
-        result = pipe.run_windowed(frames, window=course.GOLDEN_WINDOW, raw_capacity=course.GOLDEN_RAW_CAPACITY)
+        result = pipe.run_windowed(frames, window=course.GOLDEN_WINDOW, raw_capacity=course.GOLDEN_RAW_CAPACITY,
+                                   overlap_backend=overlap_backend)
     torch.cuda.synchronize()
     return pipe, result
 
@@ -1185,11 +1224,348 @@ def host_phase(knn, golden) -> dict:
     return dict(host=out["launches"], host_statistical=launches, host_statistical_windowed=launches_windowed)
 
 
+# -- the offline CLI and its dump -------------------------------------------------------
+
+CLI_PRESET = "outdoor"  # launch/hdl_graph_slam_400.launch
+# the preset's 0.1 m voxels keep ~9-10k of golden_town's ~10.4k returns a
+# scan; at 4096 rows the lowest voxel keys win (a half-space of the scan, the
+# repo-wide overflow rule) and the odometry stands still, so the CLI runs at
+# its default capacity
+CLI_CLOUD_CAPACITY = 16384
+MAP_MAX_POINTS = 1 << 21  # MapCloudGenerator.generate's default voxel cap
+CLI_TIMEOUT_S = 600
+MAP_RESOLUTION = 0.05  # the CLI's --map-resolution default
+CLI_REQUIRED = ("nn1", "knn_select", "nn1_batched", "knn_select_batched", "radius_count", "knn_select_k10")
+# The child process runs the CLI module as ``python -m`` does (runpy,
+# run_name __main__, sys.argv set) and then writes its kernel launch counts
+# to the file named by its first argument, which it removes from sys.argv.
+CLI_CHILD = (
+    "import json, runpy, sys\n"
+    "launches_path = sys.argv.pop(1)\n"
+    "from hdl_graph_slam_tpu_torch.ops import knn\n"
+    "try:\n"
+    "    runpy.run_module('hdl_graph_slam_tpu_torch.run', run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    f"    counts = {{n: getattr(knn, n).launches for n in {LAUNCH_COUNTERS!r}}}\n"
+    "    with open(launches_path, 'w') as f:\n"
+    "        json.dump(dict(counts=counts, per_k=knn.knn_select.launches_k), f)\n"
+)
+# a dump's poses are %.9g text: coordinates below 1000 m round by < 5e-7 m,
+# rotations rebuilt from 9-digit quaternions by < 1e-8
+POSE_TEXT_ATOL = 1e-6
+# map voxels, card vs CPU and one-capacity vs per-snapshot path: a point's
+# float32 transform (3 products, 3 sums) and division by the resolution round
+# by <= 4 eps32 of the terms' magnitudes; a point whose float64 cell
+# coordinate lies within FACE_ULPS eps32 of them of an integer is on a face,
+# and only the voxels on both sides of such faces may differ
+FACE_ULPS = 8
+# a re-dump rebuilds each rotation from its 9-digit quaternion and writes
+# the quaternion of that rotation, normalised: a component may move by one
+# in its last printed digit (the JAX package does the same); every other
+# token must be the same text
+QUAT_REDUMP_ATOL = 1e-9
+QUAT_TOKENS = {"VERTEX_SE3:QUAT": slice(5, 9), "EDGE_SE3:QUAT": slice(6, 10)}
+OVERLAP_FRAMES = 48
+OVERLAP_ODOM_ATOL = 1e-6  # tests/test_pipeline.py:627
+OVERLAP_POSE_ATOL = 1e-2  # tests/test_pipeline.py:631
+
+
+def write_kitti_sequence(scans, truth, directory: str) -> tuple:
+    """The course as a KITTI odometry sequence: velodyne/%06d.bin float32
+    (N, 4) with reflectance 0, times.txt with the course's stamps float(i),
+    and the truth as a KITTI poses file. Returns (sequence dir, poses file)."""
+    seq = os.path.join(directory, "sequence")
+    os.makedirs(os.path.join(seq, "velodyne"))
+    for i, xyz in enumerate(scans):
+        rows = np.zeros((len(xyz), 4), dtype=np.float32)
+        rows[:, :3] = xyz
+        rows.tofile(os.path.join(seq, "velodyne", "%06d.bin" % i))
+    np.savetxt(os.path.join(seq, "times.txt"), np.arange(len(scans), dtype=np.float64))
+    poses = os.path.join(directory, "poses.txt")
+    np.savetxt(poses, np.stack(truth)[:, :3, :].reshape(-1, 12), fmt="%.17g")
+    return seq, poses
+
+
+def voxel_cells(xyz: np.ndarray, res: float) -> tuple:
+    """Voxel centres -> (integer cells (n, 3), largest distance of a centre
+    from its cell's float64 centre in float32 ulps of the coordinate)."""
+    x = np.asarray(xyz, dtype=np.float64)
+    res32 = float(np.float32(res))
+    cells = np.floor(x / res32).astype(np.int64)
+    ulp = np.spacing(np.abs(np.asarray(xyz, dtype=np.float32))).astype(np.float64)
+    off = np.abs(x - (cells + 0.5) * res32) / np.maximum(ulp, np.finfo(np.float32).tiny)
+    return cells, float(off.max()) if len(x) else 0.0
+
+
+def cell_keys(cells: np.ndarray) -> np.ndarray:
+    c = cells + (1 << 20)
+    return (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
+
+
+def face_voxels(snapshots, res: float) -> tuple:
+    """The voxels a map of ``snapshots`` may hold or not by float32
+    rounding alone: for every point within FACE_ULPS eps32 of a voxel face
+    (judged in float64 from the same float32 pose and point the map uses),
+    the voxels on both sides of each such face. Returns (their keys, the
+    number of such points, the number of points)."""
+    res32 = float(np.float32(res))
+    keys, near_points, total = [], 0, 0
+    for snap in snapshots:
+        p = snap.cloud.to_numpy().astype(np.float64)
+        pose = np.asarray(snap.pose, dtype=np.float32).astype(np.float64)
+        R, t = pose[:3, :3], pose[:3, 3]
+        u = (p @ R.T + t) / res32
+        terms = (np.abs(p) @ np.abs(R).T + np.abs(t)) / res32 + np.abs(u)
+        near = np.abs(u - np.round(u)) <= FACE_ULPS * EPS32 * terms
+        rows = near.any(axis=1)
+        near_points += int(rows.sum())
+        total += len(p)
+        u, near = u[rows], near[rows]
+        lo = np.where(near, np.round(u) - 1, np.floor(u)).astype(np.int64)
+        hi = np.where(near, np.round(u), np.floor(u)).astype(np.int64)
+        for bits in range(8):
+            pick = np.array([(bits >> a) & 1 for a in range(3)], dtype=bool)
+            keys.append(cell_keys(np.where(pick, hi, lo)))
+    return (np.unique(np.concatenate(keys)) if keys else np.zeros(0, np.int64)), near_points, total
+
+
+def compare_maps(a: np.ndarray, b: np.ndarray, ambiguous: np.ndarray, res: float) -> dict:
+    """Two maps' voxel sets: how many voxels differ, and how many of those
+    no face point explains. A map holding MAP_MAX_POINTS voxels kept the
+    lowest keys of its occupied set, so above the lower of the two maps'
+    largest keys only the cut differs; those keys are left out."""
+    ka, kb = np.sort(cell_keys(voxel_cells(a, res)[0])), np.sort(cell_keys(voxel_cells(b, res)[0]))
+    diff = np.setxor1d(ka, kb)
+    capped = MAP_MAX_POINTS in (len(ka), len(kb))
+    if capped:
+        diff = diff[diff <= min(ka[-1], kb[-1])]
+    return dict(voxels=[int(len(ka)), int(len(kb))], capped=capped, differ=int(len(diff)),
+                unexplained=int(len(np.setdiff1d(diff, ambiguous))))
+
+
+def compare_g2o(a: str, b: str) -> dict:
+    """Two g2o files token by token: the lines that differ, the quaternion
+    components that differ and by how much (parsed), and the other tokens
+    that differ (none in a faithful re-dump)."""
+    from decimal import Decimal
+
+    with open(a) as f:
+        la = f.read().splitlines()
+    with open(b) as f:
+        lb = f.read().splitlines()
+    quat, quat_err, other = 0, 0.0, int(len(la) != len(lb))
+    for x, y in zip(la, lb):
+        if x == y:
+            continue
+        tx, ty = x.split(), y.split()
+        q = QUAT_TOKENS.get(tx[0]) if len(tx) == len(ty) and tx[0] == ty[0] else None
+        for i, (u, v) in enumerate(zip(tx, ty)):
+            if u == v:
+                continue
+            if q is not None and q.start <= i < q.stop:
+                quat += 1
+                quat_err = max(quat_err, float(abs(Decimal(u) - Decimal(v))))  # exact in decimal
+            else:
+                other += 1
+    return dict(lines=len(la), lines_differ=sum(x != y for x, y in zip(la, lb)), quaternion_values_differ=quat,
+                quaternion_max_abs_err=quat_err, other_tokens_differ=other)
+
+
+def cli_phase(golden) -> dict:
+    """The offline CLI as a user runs it: golden_town's 601 raw scans as a
+    KITTI sequence, ``python -m hdl_graph_slam_tpu_torch.run`` in a child
+    process on the card with the outdoor preset at 4096-row clouds and every
+    output, then the outputs checked: the stats line, both ATEs from the TUM
+    files against the truth, loop and floor edges from the graph JSON,
+    rotation integrity from the dump, the map on 0.05 m voxel centres."""
+    import shutil
+    from hdl_graph_slam_tpu_torch.io import kitti, pcd, trajectory as traj_io
+
+    workdir = os.path.join(HERE, "_cache", "chip_smoke_cli")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    seq, poses_path = write_kitti_sequence(golden["scans"], golden["truth"], workdir)
+    write_s = time.perf_counter() - t0
+    out = {k: os.path.join(workdir, k) for k in ("traj.txt", "odom.txt", "map.pcd", "dump", "graph.json",
+                                                "trace.json", "launches.json")}
+    cmd = [sys.executable, "-c", CLI_CHILD, out["launches.json"], "--kitti", seq, "--preset", CLI_PRESET,
+           "--cloud-capacity", str(CLI_CLOUD_CAPACITY), "--out-traj", out["traj.txt"],
+           "--out-odom-traj", out["odom.txt"], "--out-map", out["map.pcd"], "--dump", out["dump"],
+           "--out-graph-json", out["graph.json"], "--trace", out["trace.json"]]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [HERE, os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli: exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    stats = json.loads([line for line in proc.stdout.splitlines() if line.startswith("{")][-1])
+    with open(out["launches.json"]) as f:
+        launches = format_launches(**json.load(f))
+
+    ref = kitti.read_poses(poses_path)
+    truth = [(float(i), ref[i]) for i in range(ref.shape[0])]
+    est, odom = traj_io.load_tum(out["traj.txt"]), traj_io.load_tum(out["odom.txt"])
+    kf_stamps = {s for s, _ in est}
+    odom_kf = [(s, T) for s, T in odom if s in kf_stamps]
+    with open(out["graph.json"]) as f:
+        graph = json.load(f)
+    order = {node["id"]: i for i, node in enumerate(graph["nodes"])}
+    se3 = graph["edges"].get("se3_se3", [])
+    loops = sum(1 for e in se3 if e["vi"] in order and e["vj"] in order and abs(order[e["vi"]] - order[e["vj"]]) > 1)
+    mats = []
+    for name in sorted(os.listdir(out["dump"])):
+        if name.isdigit():
+            with open(os.path.join(out["dump"], name, "data")) as f:
+                lines = f.read().splitlines()
+            for tag in ("estimate", "odom"):
+                j = lines.index(tag)
+                mats.append(np.array([[float(v) for v in lines[j + k].split()] for k in (1, 2, 3)])[:, :3])
+    Rs = np.stack(mats)
+    map_xyz, _ = pcd.load_pcd(out["map.pcd"])
+    cells, centre_ulps = voxel_cells(map_xyz, MAP_RESOLUTION)
+    with open(out["trace.json"]) as f:
+        trace = json.load(f)
+    row = dict(
+        phase="cli", preset=CLI_PRESET, command="python -m hdl_graph_slam_tpu_torch.run " + " ".join(cmd[4:]),
+        frames=stats["frames"], keyframes=stats["keyframes"], edges=stats["edges"], loop_edges=loops,
+        floor_edges=len(graph["edges"].get("se3_plane", [])),
+        ate_opt_m=traj_io.ate_rmse(est, truth, align=True), ate_odom_m=traj_io.ate_rmse(odom_kf, truth, align=True),
+        det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
+        orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
+        fps=stats["fps"], wall_s=stats["wall_s"], process_seconds=seconds, write_kitti_s=write_s,
+        map_points=int(len(map_xyz)), map_unique_voxels=int(len(np.unique(cell_keys(cells)))),
+        map_centre_max_ulps=centre_ulps, save_map_s=trace["save_map"]["total_s"], dump_s=trace["dump"]["total_s"],
+        stage_wall_s={k: v["total_s"] for k, v in trace.items()}, launches=launches,
+    )
+    emit(row)
+    require(row["frames"] == len(golden["scans"]), f"cli ran {row['frames']} of {len(golden['scans'])} frames")
+    require(len(est) == row["keyframes"] and len(odom) == row["frames"], "cli: the TUM files miss poses")
+    require(row["ate_opt_m"] < row["ate_odom_m"], f"cli: optimized ATE {row['ate_opt_m']} >= odometry "
+                                                   f"{row['ate_odom_m']}")
+    require(loops >= 2, f"cli: only {loops} loop edges")
+    require(row["floor_edges"] >= 0.9 * row["keyframes"], f"cli: {row['floor_edges']} floor edges for "
+                                                           f"{row['keyframes']} keyframes")
+    require(row["det_err"] < 1e-4 and row["orth_err"] < 1e-4, f"cli: rotation drift {row['det_err']}, {row['orth_err']}")
+    require(row["map_points"] > 0 and row["map_unique_voxels"] == row["map_points"], "cli: empty map or duplicates")
+    require(centre_ulps <= 2.0, f"cli: map points {centre_ulps} ulps off their voxel centres")
+    require(all(launches[k] >= 1 for k in CLI_REQUIRED), f"cli path did not go through every kernel: {launches}")
+    return dict(workdir=workdir, out=out, launches=launches, row=row)
+
+
+def persistence_phase(golden, cli) -> None:
+    """The CLI's dump loaded on the card and on the CPU; maps card vs CPU and
+    one-capacity vs per-snapshot path under the voxel-face rule; a re-dump's
+    graph.g2o byte-identical; run_windowed(overlap_backend=True) against the
+    synchronous run over the first OVERLAP_FRAMES golden frames."""
+    import filecmp
+    import shutil
+    import torch
+    from hdl_graph_slam_tpu_torch.backend import HdlGraphSlam, KeyFrameSnapshot
+    from hdl_graph_slam_tpu_torch.backend.map_cloud import MapCloudGenerator
+    from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
+    from hdl_graph_slam_tpu_torch.core.config import PRESETS
+    from hdl_graph_slam_tpu_torch.io import pcd
+
+    dump = cli["out"]["dump"]
+    slams, load_s = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        slams[dev] = HdlGraphSlam(PRESETS[CLI_PRESET](), device=dev)
+        slams[dev].load(dump)
+        load_s[dev] = time.perf_counter() - t0
+    g, c = slams["cuda"], slams["cpu"]
+    require(len(g.keyframes) == len(c.keyframes) == cli["row"]["keyframes"], "persistence: keyframe counts differ")
+    require([k.node_id for k in g.keyframes] == [k.node_id for k in c.keyframes], "persistence: node ids differ")
+    require([k.stamp for k in g.keyframes] == [k.stamp for k in c.keyframes], "persistence: stamps differ")
+    require(g.graph.num_edges == c.graph.num_edges == cli["row"]["edges"], "persistence: edge counts differ")
+    pose_err = 0.0
+    for i, kf in enumerate(g.keyframes):
+        with open(os.path.join(dump, "%06d" % i, "data")) as f:
+            lines = f.read().splitlines()
+        j = lines.index("estimate")
+        text = np.array([[float(v) for v in lines[j + k].split()] for k in (1, 2, 3, 4)])
+        pose_err = max(pose_err, float(np.abs(g.graph.poses[kf.node_id] - text).max()),
+                       float(np.abs(c.graph.poses[kf.node_id] - text).max()))
+
+    t0 = time.perf_counter()
+    map_gpu = g.generate_map(MAP_RESOLUTION)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    map_cpu = c.generate_map(MAP_RESOLUTION)
+    cpu_s = time.perf_counter() - t0
+    caps = sorted({s.cloud.capacity for s in g.snapshots})
+    one = [KeyFrameSnapshot(pose=s.pose, cloud=cloudlib.from_numpy(s.cloud.to_numpy(), capacity=caps[-1],
+                                                                    device="cuda")) for s in g.snapshots]
+    wide = KeyFrameSnapshot(pose=one[0].pose, cloud=cloudlib.from_numpy(one[0].cloud.to_numpy(), capacity=2 * caps[-1],
+                                                                         device="cuda"))
+    t0 = time.perf_counter()
+    map_fast = MapCloudGenerator().generate(one, MAP_RESOLUTION)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    map_mixed = MapCloudGenerator().generate([wide] + one[1:], MAP_RESOLUTION)
+    mixed_s = time.perf_counter() - t0
+    ambiguous, near_points, points = face_voxels(c.snapshots, MAP_RESOLUTION)
+    card_cpu = compare_maps(map_gpu, map_cpu, ambiguous, MAP_RESOLUTION)
+    paths = compare_maps(map_fast, map_mixed, ambiguous, MAP_RESOLUTION)
+    saved = compare_maps(map_gpu, pcd.load_pcd(cli["out"]["map.pcd"])[0], ambiguous, MAP_RESOLUTION)
+
+    redump = os.path.join(cli["workdir"], "redump")
+    t0 = time.perf_counter()
+    g.dump(redump)
+    redump_s = time.perf_counter() - t0
+    g2o = compare_g2o(os.path.join(dump, "graph.g2o"), os.path.join(redump, "graph.g2o"))
+    same_kernels = filecmp.cmp(os.path.join(dump, "graph.g2o.kernels"), os.path.join(redump, "graph.g2o.kernels"),
+                               shallow=False)
+
+    frames = golden_frames(golden, OVERLAP_FRAMES)
+    t0 = time.perf_counter()
+    _, sync = run_golden(golden["cfg"], frames)
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ovl = run_golden(golden["cfg"], frames, overlap_backend=True)
+    ovl_s = time.perf_counter() - t0
+    _, again = run_golden(golden["cfg"], frames)
+
+    def odom_diff(a, b):
+        return max(float(np.abs(x - y).max()) for (_, x), (_, y) in zip(a.odometry_trajectory, b.odometry_trajectory))
+
+    odom_err, repeat_err = odom_diff(sync, ovl), odom_diff(sync, again)
+    pose_err_ovl = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(sync.trajectory, ovl.trajectory))
+    row = dict(
+        phase="persistence", keyframes=len(g.keyframes), edges=g.graph.num_edges, load_s=load_s,
+        pose_text_max_abs_err=pose_err, pose_text_atol=POSE_TEXT_ATOL,
+        snapshot_capacities=caps, generate_map_path="one capacity" if len(caps) == 1 else "mixed capacities",
+        map_points=dict(cuda=int(len(map_gpu)), cpu=int(len(map_cpu)), fast=int(len(map_fast)),
+                        mixed=int(len(map_mixed))),
+        map_s=dict(cuda=gpu_s, cpu=cpu_s, fast_cuda=fast_s, mixed_cuda=mixed_s),
+        face_points=near_points, points=points, face_ulps=FACE_ULPS, ambiguous_voxels=int(len(ambiguous)),
+        card_vs_cpu=card_cpu, fast_vs_mixed=paths, loaded_vs_cli_map=saved,
+        redump_g2o=g2o, redump_kernels_identical=same_kernels, quaternion_atol=QUAT_REDUMP_ATOL,
+        redump_s=redump_s,
+        overlap=dict(frames=len(frames), keyframes=[sync.num_keyframes, ovl.num_keyframes], sync_s=sync_s,
+                     overlap_s=ovl_s, odometry_max_abs_err=odom_err, trajectory_max_abs_err=pose_err_ovl,
+                     synchronous_repeat_odometry_max_abs_err=repeat_err,
+                     odometry_atol=OVERLAP_ODOM_ATOL, trajectory_atol=OVERLAP_POSE_ATOL),
+    )
+    emit(row)
+    require(pose_err <= POSE_TEXT_ATOL, f"persistence: loaded poses differ from the dump's text by {pose_err}")
+    for name, cmp in (("card vs CPU", card_cpu), ("fast vs mixed", paths), ("loaded vs the CLI's", saved)):
+        require(cmp["unexplained"] == 0, f"persistence: maps {name} differ off voxel faces: {cmp}")
+    require(g2o["other_tokens_differ"] == 0 and g2o["quaternion_max_abs_err"] <= QUAT_REDUMP_ATOL and same_kernels,
+            f"persistence: the re-dumped graph.g2o differs from the CLI's: {g2o}")
+    require(sync.num_frames == ovl.num_frames == len(frames) and sync.num_keyframes == ovl.num_keyframes,
+            "persistence: overlapped run differs in frames or keyframes")
+    require(odom_err <= OVERLAP_ODOM_ATOL, f"persistence: overlapped odometry differs by {odom_err}")
+    require(pose_err_ovl <= OVERLAP_POSE_ATOL, f"persistence: overlapped trajectory differs by {pose_err_ovl}")
+    shutil.rmtree(cli["workdir"], ignore_errors=True)
+
+
 def kernels_line(kres, bres, fres, launches, peak_flops) -> list:
     """One entry per kernel entry point measured in this run. ``launches``
     maps each path (main, slam, slam_floor, host, host_statistical: the
-    STATISTICAL run(), host_statistical_windowed: its run_windowed twin) to its
-    launch counts; an entry's ``launches`` is that of its own main path."""
+    STATISTICAL run(), host_statistical_windowed: its run_windowed twin, cli:
+    the CLI's child process) to its launch counts; an entry's ``launches`` is
+    that of its own main path, ``launches_cli`` the CLI's."""
     from hdl_graph_slam_tpu_torch.utils.course import BENCH_FRAMES
 
     line = []
@@ -1206,7 +1582,7 @@ def kernels_line(kres, bres, fres, launches, peak_flops) -> list:
         bytes_s = (2 * n * 12 + sp["out_bytes"]) / HBM_BYTES_PER_S
         line.append(dict(
             name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=sp["replaces"],
-            launches=launches["main"][name], launches_slam=launches["slam"][name],
+            launches=launches["main"][name], launches_slam=launches["slam"][name], launches_cli=launches["cli"][name],
             launches_per_frame=launches["main"][name] / (BENCH_FRAMES + 1),
             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
             host_ms=r["host_ms"], plain_ms=r["plain_ms"],
@@ -1228,7 +1604,7 @@ def kernels_line(kres, bres, fres, launches, peak_flops) -> list:
         bytes_s = (b * (nq + m) * 12 + out_bytes) / HBM_BYTES_PER_S
         line.append(dict(
             name=f"{kind}_batched", route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=replaces,
-            launches=launches["slam"][f"{kind}_batched"],
+            launches=launches["slam"][f"{kind}_batched"], launches_cli=launches["cli"][f"{kind}_batched"],
             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
             host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
@@ -1249,7 +1625,8 @@ def kernels_line(kres, bres, fres, launches, peak_flops) -> list:
         bytes_s = (r["n"] * 12 + r["m"] * 12 + r["n"] * out_per_row) / HBM_BYTES_PER_S
         line.append(dict(
             name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=replaces,
-            launches=launches[path][name], launches_by_path={p: v[name] for p, v in launches.items() if name in v},
+            launches=launches[path][name], launches_cli=launches["cli"][name],
+            launches_by_path={p: v[name] for p, v in launches.items() if name in v},
             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
             host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
@@ -1442,7 +1819,13 @@ def main(argv=None) -> int:
     # -- 10. the per-frame path: run() with the outdoor filters -------------------------
     launches.update(host_phase(knn, golden))
 
-    # -- 11. kernels line ------------------------------------------------------
+    # -- 11. the offline CLI on golden_town, then 12. its dump ----------------------------
+    cli = cli_phase(golden)
+    launches["cli"] = cli["launches"]
+    persistence_phase(golden, cli)
+
+    # -- 13. kernels line ------------------------------------------------------
+    emit(dict(phase="done"))
     emit({"kernels": kernels_line(kres, bres, fres, launches, peak_flops)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

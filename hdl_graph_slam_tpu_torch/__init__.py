@@ -4,9 +4,11 @@ Same module layout and names as the JAX package, which stays in the
 repository as the reference this port is tested against. The port never
 imports jax or hdl_graph_slam_tpu; modules it needs from there are copied.
 
-Entry points (frontend.OdometryWindow, frontend.DeviceOdometry,
-frontend.Prefilter) run on ``cuda`` unless given ``device="cpu"``; without a
-GPU they raise instead of quietly running on the CPU. Kernels written by hand
+Entry points (the offline CLI ``python -m hdl_graph_slam_tpu_torch.run``,
+pipeline.SlamPipeline, backend.HdlGraphSlam, frontend.OdometryWindow,
+frontend.DeviceOdometry, frontend.Prefilter) run on ``cuda`` unless given
+``device="cpu"`` (``--device cpu``); without a GPU they raise instead of
+quietly running on the CPU. Kernels written by hand
 for Hopper live in ``csrc/`` and are built at first use (kernels/).
 """
 

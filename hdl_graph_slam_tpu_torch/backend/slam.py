@@ -1,20 +1,22 @@
 """Backend orchestrator: keyframe admission, multi-sensor graph construction,
-periodic optimization (port of hdl_graph_slam_tpu/backend/slam.py).
+periodic optimization, map assembly (port of hdl_graph_slam_tpu/backend/slam.py).
 
 Equivalent of HdlGraphSlamNodelet (apps/hdl_graph_slam_nodelet.cpp), with the
 ROS queues/timers replaced by explicit method calls from the pipeline driver:
-- add_frame()       <- cloud_callback + KeyframeUpdater gate (:149-178)
-- add_gps/imu/floor <- the sensor callbacks (:252-282, 360-366, 457-467)
-- optimize_cycle()  <- optimization_timer_callback (:546-612)
+- add_frame()        <- cloud_callback + KeyframeUpdater gate (:149-178)
+- add_gps/imu/floor  <- the sensor callbacks (:252-282, 360-366, 457-467)
+- optimize_cycle()   <- optimization_timer_callback (:546-612)
+- generate_map()     <- map_points_publish_timer_callback (:517-540)
+- save_map/dump/load <- the three services (:818-1013)
 
 The graph is host-side numpy (graph.types.GraphBuilder); each optimize cycle
 freezes it to float64 tensors on the device, runs the dense LM there and
-copies the estimates back once. Keyframe clouds stay on the device.
+copies the estimates back once. Keyframe clouds stay on the device, and the
+map is built there. A dump has the reference's layout and loads in either
+package.
 
-Not ported in this slice: the map (generate_map, save_map) and persistence
-(dump, load) are ROADMAP Queue 1 item 12 with graph/io.py and
-backend/map_cloud.py; the distributed and hierarchical optimisers
-(``distributed``, ``submap_block_size`` > 0) are item 14.
+Not ported: the distributed and hierarchical optimisers (``distributed``,
+``submap_block_size`` > 0) are ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..io import geodesy
 from .information_matrix import InformationMatrixCalculator
 from .keyframe import KeyFrame, KeyFrameSnapshot, KeyframeUpdater
 from .loop_detector import LoopDetector
+from .map_cloud import MapCloudGenerator
 
 
 @dataclasses.dataclass
@@ -57,9 +60,6 @@ class FloorMeasurement:
     coeffs: np.ndarray  # (4,)
 
 
-_PERSISTENCE = "the map and persistence (generate_map, save_map, dump, load) are ROADMAP Queue 1 item 12 of the port"
-
-
 class HdlGraphSlam:
     """The backend on ``device`` (None = cuda): keyframe clouds, loop
     matching and the pose-graph solve run there; the graph is float64."""
@@ -76,6 +76,7 @@ class HdlGraphSlam:
         self.keyframe_updater = KeyframeUpdater(b.keyframe_delta_trans, b.keyframe_delta_angle)
         self.loop_detector = LoopDetector(self.cfg.loop)
         self.inf_calculator = InformationMatrixCalculator(self.cfg.information)
+        self.map_generator = MapCloudGenerator()
 
         self.keyframes: List[KeyFrame] = []
         self.new_keyframes: List[KeyFrame] = []
@@ -408,17 +409,149 @@ class HdlGraphSlam:
 
     # -- outputs -------------------------------------------------------------
 
+    def generate_map(self, resolution: Optional[float] = None) -> Optional[np.ndarray]:
+        res = self.cfg.backend.map_cloud_resolution if resolution is None else resolution
+        return self.map_generator.generate(self.snapshots, resolution=res)
+
     def trajectory(self) -> List[Tuple[float, np.ndarray]]:
         return [(kf.stamp, self.graph.poses[kf.node_id]) for kf in self.keyframes]
 
-    def generate_map(self, resolution: Optional[float] = None):
-        raise NotImplementedError(_PERSISTENCE)
+    # -- persistence services (dump/load/save_map,
+    #    hdl_graph_slam_nodelet.cpp:818-1013) --------------------------------
 
     def save_map(self, path: str, resolution: Optional[float] = None, utm: bool = False) -> bool:
-        raise NotImplementedError(_PERSISTENCE)
+        """save_map_service (:982-1013): assemble + write PCD (+ .utm).
+
+        ``utm=True`` mirrors SaveMap.srv's ``utm`` flag: output points are
+        offset by zero_utm so the map lands in the absolute UTM frame
+        (hdl_graph_slam_nodelet.cpp:995-999). No-op when no GPS fix has
+        established a datum, like the reference's ``zero_utm &&`` guard.
+        """
+        from ..io import pcd as pcdio
+
+        pts = self.generate_map(resolution=resolution)
+        if pts is None:
+            return False
+        if utm and self.zero_utm is not None:
+            pts = pts + self.zero_utm.astype(pts.dtype)
+        if self.zero_utm is not None:
+            with open(path + ".utm", "w") as f:
+                f.write("%.6f %.6f %.6f\n" % tuple(self.zero_utm))
+        pcdio.save_pcd(path, pts)
+        return True
 
     def dump(self, directory: str) -> bool:
-        raise NotImplementedError(_PERSISTENCE)
+        """dump_service (:932-974): graph.g2o + per-keyframe dirs +
+        zero_utm + special_nodes.csv, matching the reference layout
+        (keyframe.cpp:21-58)."""
+        import os
+
+        from ..graph.io import save_g2o
+        from ..io import pcd as pcdio
+
+        def row(values) -> str:
+            return " ".join("%.9g" % v for v in values)
+
+        os.makedirs(directory, exist_ok=True)
+        save_g2o(self.graph, os.path.join(directory, "graph.g2o"))
+        for i, kf in enumerate(self.keyframes):
+            kdir = os.path.join(directory, "%06d" % i)
+            os.makedirs(kdir, exist_ok=True)
+            with open(os.path.join(kdir, "data"), "w") as f:
+                secs = int(kf.stamp)
+                nsecs = int(round((kf.stamp - secs) * 1e9))
+                f.write(f"stamp {secs} {nsecs}\n")
+                f.write("estimate\n")
+                for r in self.graph.poses[kf.node_id]:
+                    f.write(row(r) + "\n")
+                f.write("odom\n")
+                for r in kf.odom:
+                    f.write(row(r) + "\n")
+                f.write(f"accum_distance {kf.accum_distance:.9g}\n")
+                for name in ("floor_coeffs", "utm_coord", "acceleration", "orientation"):
+                    value = getattr(kf, name)
+                    if value is not None:
+                        f.write(f"{name} {row(value)}\n")
+                f.write(f"id {kf.node_id}\n")
+            pcdio.save_pcd(os.path.join(kdir, "cloud.pcd"), kf.cloud.to_numpy())
+        if self.zero_utm is not None:
+            with open(os.path.join(directory, "zero_utm"), "w") as f:
+                f.write("%.6f %.6f %.6f\n" % tuple(self.zero_utm))
+        with open(os.path.join(directory, "special_nodes.csv"), "w") as f:
+            f.write(f"anchor_node {-1 if self.anchor_node_id is None else self.anchor_node_id}\n")
+            f.write(f"anchor_edge {-1}\n")
+            f.write(f"floor_node {-1 if self.floor_plane_node_id is None else self.floor_plane_node_id}\n")
+        return True
 
     def load(self, directory: str) -> bool:
-        raise NotImplementedError(_PERSISTENCE)
+        """load_service (:818-923): rebuild graph + keyframes from a dump;
+        the clouds go to this instance's device."""
+        import os
+
+        from ..core import cloud as cloudlib
+        from ..graph.io import load_g2o
+        from ..io import pcd as pcdio
+
+        self.graph = load_g2o(os.path.join(directory, "graph.g2o"))
+        self.keyframes = []
+        self.keyframe_hash = {}
+        i = 0
+        while True:
+            kdir = os.path.join(directory, "%06d" % i)
+            if not os.path.isdir(kdir):
+                break
+            fields = {}
+            matrices = {}
+            with open(os.path.join(kdir, "data")) as f:
+                lines = f.read().splitlines()
+            j = 0
+            while j < len(lines):
+                parts = lines[j].split()
+                if not parts:
+                    j += 1
+                elif parts[0] in ("estimate", "odom"):
+                    matrices[parts[0]] = np.asarray([[float(v) for v in lines[j + k + 1].split()] for k in range(4)])
+                    j += 5
+                else:
+                    fields[parts[0]] = parts[1:]
+                    j += 1
+            xyz, inten = pcdio.load_pcd(os.path.join(kdir, "cloud.pcd"))
+            secs, nsecs = int(fields["stamp"][0]), int(fields["stamp"][1])
+            kf = KeyFrame(
+                stamp=secs + nsecs * 1e-9,
+                odom=matrices["odom"],
+                accum_distance=float(fields["accum_distance"][0]),
+                cloud=cloudlib.from_numpy(xyz, intensity=inten, device=self.device),
+                node_id=int(fields["id"][0]),
+            )
+            for name in ("floor_coeffs", "utm_coord", "acceleration", "orientation"):
+                if name in fields:
+                    setattr(kf, name, np.array([float(v) for v in fields[name]]))
+            self.keyframes.append(kf)
+            self.keyframe_hash[kf.stamp] = kf
+            i += 1
+        zpath = os.path.join(directory, "zero_utm")
+        if os.path.exists(zpath):
+            with open(zpath) as f:
+                self.zero_utm = np.array([float(v) for v in f.read().split()])
+        spath = os.path.join(directory, "special_nodes.csv")
+        if os.path.exists(spath):
+            with open(spath) as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) != 2 or int(parts[1]) < 0:
+                        continue
+                    if parts[0] == "anchor_node":
+                        self.anchor_node_id = int(parts[1])
+                        if self.keyframes:
+                            self.anchor_edge_first_kf = self.keyframes[0].node_id
+                    elif parts[0] == "floor_node":
+                        self.floor_plane_node_id = int(parts[1])
+        if self.keyframes:
+            self.keyframe_updater.is_first = False
+            self.keyframe_updater.accum_distance = self.keyframes[-1].accum_distance
+            self.keyframe_updater.prev_keypose = self.keyframes[-1].odom.copy()
+        self.snapshots = [
+            KeyFrameSnapshot(pose=self.graph.poses[kf.node_id], cloud=kf.cloud) for kf in self.keyframes
+        ]
+        return True

@@ -1,1 +1,1 @@
-from . import geodesy, trajectory
+from . import geodesy, nmea, pcd, kitti, trajectory, rosbag, ford, native

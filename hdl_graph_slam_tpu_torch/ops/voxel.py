@@ -1,18 +1,27 @@
-"""Voxel-grid centroid downsampling, sort-based and static-shaped
-(port of the hdl_graph_slam_tpu/ops/voxel.py functions the prefilter uses).
+"""Voxel-grid operations, sort-based and static-shaped (port of the
+hdl_graph_slam_tpu/ops/voxel.py functions the prefilter and the map use).
 
-pcl::VoxelGrid semantics (apps/prefiltering_nodelet.cpp:56-60): voxel
-membership is an integer key per point; a stable sort groups points by voxel,
+- pcl::VoxelGrid centroid downsampling (apps/prefiltering_nodelet.cpp:56-60);
+- pcl::octree occupied-voxel centres, the map's downsample
+  (map_cloud_generator.cpp:39-50).
+
+Voxel membership is an integer key per point; a sort groups points by voxel,
 segment boundaries give each point a dense segment id, and per-voxel sums
-are reduced into a caller-chosen capacity. Output centroids come in ascending
-key order; when more voxels are occupied than the capacity, the lowest keys
-win.
+are reduced into a caller-chosen capacity. Output comes in ascending key
+order; when more voxels are occupied than the capacity, the lowest keys win.
+Global keys are int64 (21 bits per axis) built from floor(x / res) in
+integers, never through a float.
 
 PyTorch differences from the JAX reference, handled here:
-- ``jax.ops.segment_sum`` drops ids >= num_segments; ``index_add_`` raises on
-  them, so overflow ids are redirected into one discarded extra row.
-- On the GPU ``index_add_`` sums with atomics, in an order that differs from
-  the CPU's sequential one: centroids agree to float32 rounding, not bits.
+- ``jax.ops.segment_sum`` drops ids >= num_segments; PyTorch's scatters
+  raise on them, so overflow ids are redirected into one discarded extra row.
+- Per-voxel float sums are ``segment_reduce`` over the sorted rows, each
+  voxel summed in row order on either device: a scatter with float atomics
+  (``index_add_`` on the GPU) sums in launch order, and two runs over the
+  same frames would then differ in their last bits.
+- On the GPU, a tensor divided by a Python float is multiplied by the
+  reciprocal; cells divide by a float32 tensor on the same device instead,
+  the JAX package's x / float32(res) on both devices.
 """
 
 from __future__ import annotations
@@ -34,9 +43,15 @@ _LOCAL_RANGE = 1 << _LOCAL_BITS
 _LOCAL_INVALID = torch.iinfo(torch.int32).max
 
 
+def _cells(xyz: torch.Tensor, resolution: float) -> torch.Tensor:
+    """floor(x / res) in xyz's float type: a true division by res rounded to
+    that type (a 0-d tensor on xyz's device, not a Python float)."""
+    return torch.floor(xyz / torch.full((), resolution, dtype=xyz.dtype, device=xyz.device))
+
+
 def local_cells(xyz: torch.Tensor, resolution: float) -> torch.Tensor:
     """Integer cell coordinates floor(x/res) as int32 (PCL cell assignment)."""
-    return torch.floor(xyz / resolution).to(torch.int32)
+    return _cells(xyz, resolution).to(torch.int32)
 
 
 def local_origin(xyz: torch.Tensor, mask: torch.Tensor, resolution: float) -> torch.Tensor:
@@ -56,11 +71,19 @@ def pack_local_keys(ijk: torch.Tensor, origin: torch.Tensor, valid: torch.Tensor
 
 
 def voxel_keys(xyz: torch.Tensor, mask: torch.Tensor, resolution: float) -> torch.Tensor:
-    """Map points to int64 voxel keys; invalid points get the sentinel key."""
-    ijk = torch.floor(xyz / resolution).to(torch.int64) + _AXIS_OFFSET
+    """Map points to int64 voxel keys; invalid points get the sentinel key
+    (sorts to the end). Each axis is offset by 2^20 and clipped to 21 bits."""
+    ijk = _cells(xyz, resolution).to(torch.int64) + _AXIS_OFFSET
     ijk = torch.clamp(ijk, 0, (1 << _AXIS_BITS) - 1)
     key = (ijk[..., 0] << (2 * _AXIS_BITS)) | (ijk[..., 1] << _AXIS_BITS) | ijk[..., 2]
     return torch.where(mask, key, _INVALID_KEY)
+
+
+def key_to_center(key: torch.Tensor, resolution: float) -> torch.Tensor:
+    """Voxel key -> voxel centre coordinates (float32)."""
+    mask = (1 << _AXIS_BITS) - 1
+    ijk = torch.stack([(key >> (2 * _AXIS_BITS)) & mask, (key >> _AXIS_BITS) & mask, key & mask], dim=-1)
+    return (ijk.to(torch.float32) - _AXIS_OFFSET + 0.5) * resolution
 
 
 def local_grid_fits(extent: float, resolution: float) -> bool:
@@ -101,11 +124,17 @@ def _downsample_from_keys(cloud: PointCloud, keys: torch.Tensor, invalid_key: in
     payload = torch.cat(payload, dim=1)
 
     seg_ids, _ = _segment_ids_from_sorted_keys(keys_s)
-    # ids past max_voxels go to one extra row that is dropped (segment_sum's
-    # out-of-range policy: the lowest keys win)
-    acc = torch.zeros((max_voxels + 1, payload.shape[1]), dtype=payload.dtype, device=payload.device)
-    acc.index_add_(0, torch.clamp(seg_ids, max=max_voxels), payload)
-    acc = acc[:max_voxels]
+    # Rows no voxel keeps (padding, and ids past max_voxels: segment_sum's
+    # out-of-range policy, the lowest keys win) come last in sorted order;
+    # each gets a one-row segment past the kept ones, which is dropped, so
+    # no reduction walks a long run of them. Segment ids stay sorted, so
+    # every voxel's rows are contiguous.
+    n = keys_s.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=payload.device)
+    seg = torch.where(valid_s & (seg_ids < max_voxels), seg_ids.to(torch.int64), max_voxels + iota)
+    lengths = torch.zeros(max_voxels + n, dtype=torch.int64, device=payload.device)
+    lengths.index_add_(0, seg, torch.ones_like(seg))
+    acc = torch.segment_reduce(payload, "sum", lengths=lengths, axis=0, unsafe=True)[:max_voxels]
     sums, counts = acc[:, :3], acc[:, 3]
     seg_keys = _segment_keys(keys_s, seg_ids, max_voxels)
 
@@ -131,3 +160,19 @@ def voxel_downsample_local(cloud: PointCloud, resolution: float, max_voxels: int
     origin = local_origin(cloud.xyz, cloud.mask, resolution)
     keys = pack_local_keys(local_cells(cloud.xyz, resolution), origin, cloud.mask)
     return _downsample_from_keys(cloud, keys, _LOCAL_INVALID, max_voxels)
+
+
+def occupied_voxel_centers(cloud: PointCloud, resolution: float, max_voxels: int) -> PointCloud:
+    """Occupied-voxel-centre downsample (pcl::octree getOccupiedVoxelCenters,
+    map_cloud_generator.cpp:39-50): the centre of every voxel holding a valid
+    point, in ascending key order, in a cloud of capacity ``max_voxels``.
+    Overflow: the lowest keys win, and the ids past the capacity are masked
+    out of the counts (segment_sum drops them)."""
+    keys_s = torch.sort(voxel_keys(cloud.xyz, cloud.mask, resolution)).values
+    seg_ids, _ = _segment_ids_from_sorted_keys(keys_s)
+    seg_keys = _segment_keys(keys_s, seg_ids, max_voxels)
+    counts = torch.zeros(max_voxels + 1, dtype=torch.int32, device=keys_s.device)
+    counts.index_add_(0, torch.clamp(seg_ids, max=max_voxels), (keys_s != _INVALID_KEY).to(torch.int32))
+    out_mask = (counts[:max_voxels] > 0) & (seg_keys != _INVALID_KEY)
+    centers = key_to_center(torch.where(out_mask, seg_keys, 0), resolution).to(cloud.xyz.dtype)
+    return PointCloud(xyz=torch.where(out_mask[:, None], centers, PAD_COORD), mask=out_mask)

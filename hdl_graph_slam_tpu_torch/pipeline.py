@@ -1,26 +1,31 @@
 """Offline pipeline driver: frames -> prefilter -> odometry -> floor ->
-backend -> trajectory (port of hdl_graph_slam_tpu/pipeline.py).
+backend -> trajectory/map (port of hdl_graph_slam_tpu/pipeline.py).
 
 Replaces the reference's ROS launch graph + bag_player.py flow control
-(SURVEY.md §3.6). Two modes, both with a synchronous backend that fires its
-optimize cycle on the reference's cadence (graph_update_interval of stream
-time):
+(SURVEY.md §3.6). Two modes, whose backend fires its optimize cycle on the
+reference's cadence (graph_update_interval of stream time):
 - ``run``/``process_frame``: each frame through the prefilter, the
   per-frame odometry (ScanMatchingOdometry, or DeviceOdometry with
   ``device_odometry=True``) with the IMU or robot-odometry init guess, and
   floor detection;
 - ``run_windowed``: K frames of prefilter + odometry per window on the
-  device (frontend/window.py), floor detection on the keyframes.
+  device (frontend/window.py), floor detection on the keyframes; with
+  ``overlap_backend=True`` each optimize cycle runs on a worker thread.
 
-``overlap_backend=True`` and AsyncBackend raise NotImplementedError naming
-ROADMAP Queue 1 item 13.
+AsyncBackend runs optimize cycles on a wall-clock timer thread, the
+reference's timer-decoupled backend. A worker thread makes the instance's
+device its current device (the current CUDA device and stream are per
+thread in PyTorch) and uses that device's default stream, as the main
+thread does; launches from both threads are serialised by the GIL, so the
+overlap gains host time only. ``frames_from_rosbag``/``frames_from_kitti``
+read recorded drives.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +36,22 @@ from .core.config import SlamConfig, wire_derived
 from .core.device import resolve_device
 from .frontend import DeviceOdometry, FloorDetector, OdometryWindow, Prefilter, ScanMatchingOdometry, stack_scans
 from .frontend.imu_prediction import ImuPredictor
+from .utils.metrics import GLOBAL_TIMER
+
+
+def _on_device(device: torch.device):
+    """A function wrapper that runs ``fn`` with ``device`` as the calling
+    thread's current CUDA device (a no-op off CUDA). Built on the thread that
+    owns the pipeline, which resolves a bare ``cuda`` to its current index."""
+    if device.type != "cuda":
+        return lambda fn: fn()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+
+    def run(fn):
+        with torch.cuda.device(index):
+            return fn()
+
+    return run
 
 
 @dataclasses.dataclass
@@ -81,8 +102,10 @@ class SlamPipeline:
         if xyz is None or np.size(xyz) == 0:
             # the reference skips empty clouds (prefiltering_nodelet.cpp:111-113)
             return self.odometry_trajectory[-1][1] if self.odometry_trajectory else np.eye(4)
-        cloud = cloudlib.from_numpy(xyz, intensity=intensity, device=self.device)
-        filtered = self.prefilter(cloud, ang_vel=self._last_ang_vel if self.cfg.prefilter.deskewing else None)
+        with GLOBAL_TIMER.span("ingest"):
+            cloud = cloudlib.from_numpy(xyz, intensity=intensity, device=self.device)
+        with GLOBAL_TIMER.span("prefilter"):
+            filtered = self.prefilter(cloud, ang_vel=self._last_ang_vel if self.cfg.prefilter.deskewing else None)
         msf_delta, msf_source = None, "imu"
         if self.imu_predictor is not None:
             msf_delta = self.imu_predictor.predict_delta(stamp)
@@ -91,19 +114,22 @@ class SlamPipeline:
             # enabled (scan_matching_odometry_nodelet.cpp:182-207)
             msf_delta = self._robot_odom_delta(self._prev_frame_time, stamp)
             msf_source = "odometry"
-        odom = self.odometry.step(stamp, filtered, msf_delta=msf_delta, msf_source=msf_source)
-        if isinstance(odom, torch.Tensor):  # DeviceOdometry's pose stays on the device
-            odom = odom.cpu().numpy()
-        odom = np.asarray(odom, dtype=np.float64)
+        with GLOBAL_TIMER.span("odometry"):
+            odom = self.odometry.step(stamp, filtered, msf_delta=msf_delta, msf_source=msf_source)
+            if isinstance(odom, torch.Tensor):  # DeviceOdometry's pose stays on the device
+                odom = odom.cpu().numpy()
+            odom = np.asarray(odom, dtype=np.float64)
         self._prev_frame_time = stamp
         self.odometry_trajectory.append((stamp, odom))
         self.slam.add_frame(stamp, odom, filtered)
         if self.floor is not None:
-            self._detect_floor(stamp, filtered)
+            with GLOBAL_TIMER.span("floor_detection"):
+                self._detect_floor(stamp, filtered)
         if self._last_optimize_stream_time is None:
             self._last_optimize_stream_time = stamp
         elif stamp - self._last_optimize_stream_time >= self.cfg.backend.graph_update_interval:
-            self.slam.optimize_cycle()
+            with GLOBAL_TIMER.span("optimize_cycle"):
+                self.slam.optimize_cycle()
             self._last_optimize_stream_time = stamp
         return odom
 
@@ -187,10 +213,15 @@ class SlamPipeline:
         guesses are not injected inside a window. Deskewing is threaded as
         in the JAX package: each frame carries the latest IMU angular
         velocity seen at enqueue time (add_imu from the frames
-        generator)."""
-        if overlap_backend:
-            raise NotImplementedError("overlap_backend=True (the backend on a worker thread) is ROADMAP Queue 1 "
-                                      "item 13 of the port")
+        generator).
+
+        ``overlap_backend=True`` runs each due optimize cycle on a worker
+        thread so the next window is launched meanwhile — the reference's
+        timer-decoupled nodelet architecture (hdl_graph_slam_nodelet.cpp:
+        137-139) applied to offline replay. The HdlGraphSlam locks make this
+        safe; the odometry is the synchronous run's, but when a cycle runs
+        relative to the windows depends on wall time, so keep the default
+        (synchronous, deterministic) for parity runs."""
         cap = raw_capacity or self.cloud_capacity * 2
         win = OdometryWindow(self.cfg.odometry, prefilter_cfg=self.cfg.prefilter, out_capacity=self.cloud_capacity,
                              device=self.device)
@@ -247,18 +278,41 @@ class SlamPipeline:
                     self._detect_floor(stamp, cloud)
             pending.clear()
 
-        for item in frames:
-            w = self._last_ang_vel if deskew else None
-            pending.append((float(item[0]), item[1], w))
-            if len(pending) >= window:
-                flush_window()
-                if (
-                    self._last_optimize_stream_time is None
-                    or item[0] - self._last_optimize_stream_time >= self.cfg.backend.graph_update_interval
-                ):
-                    self.slam.optimize_cycle()
-                    self._last_optimize_stream_time = item[0]
-        flush_window()
+        executor = None
+        pending_cycle = None
+        if overlap_backend:
+            from concurrent.futures import ThreadPoolExecutor
+
+            executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="backend")
+            on_device = _on_device(self.device)
+
+        def run_cycle():
+            nonlocal pending_cycle
+            if executor is None:
+                self.slam.optimize_cycle()
+                return
+            if pending_cycle is not None:
+                pending_cycle.result()  # surface the worker's exception
+            pending_cycle = executor.submit(on_device, self.slam.optimize_cycle)
+
+        try:
+            for item in frames:
+                w = self._last_ang_vel if deskew else None
+                pending.append((float(item[0]), item[1], w))
+                if len(pending) >= window:
+                    flush_window()
+                    if (
+                        self._last_optimize_stream_time is None
+                        or item[0] - self._last_optimize_stream_time >= self.cfg.backend.graph_update_interval
+                    ):
+                        run_cycle()
+                        self._last_optimize_stream_time = item[0]
+            flush_window()
+            if pending_cycle is not None:
+                pending_cycle.result()
+        finally:
+            if executor is not None:
+                executor.shutdown(wait=True)
         self.finish()
         wall = time.perf_counter() - t0
         return PipelineResult(
@@ -271,8 +325,65 @@ class SlamPipeline:
         )
 
 
+def frames_from_rosbag(path: str, points_topic: str = "/velodyne_points") -> Iterator:
+    """Yield (stamp, xyz, intensity) from a bag (bag_player.py replacement)."""
+    from .io import rosbag as rb
+
+    reader = rb.BagReader(path)
+    for m in reader.messages(topics=[points_topic]):
+        stamp, _frame, xyz, inten = rb.parse_pointcloud2(m.raw)
+        yield (stamp if stamp > 0 else m.stamp), xyz, inten
+
+
+def frames_from_kitti(sequence_dir: str) -> Iterator:
+    """Yield (stamp, xyz, reflectance) from a KITTI odometry sequence."""
+    from .io.kitti import KittiOdometrySequence
+
+    for stamp, xyz, refl in KittiOdometrySequence(sequence_dir):
+        yield stamp, xyz, refl
+
+
 class AsyncBackend:
-    """The background optimization thread (hdl_graph_slam_nodelet.cpp:137-139)."""
+    """Background optimization thread.
+
+    The reference decouples the sensor-rate frontend from the backend with a
+    3 s wall timer on the nodelet thread pool (optimization_timer_callback,
+    hdl_graph_slam_nodelet.cpp:137-139). This thread reproduces that: it
+    wakes every ``interval`` wall seconds and runs one optimize cycle on the
+    backend's device while the frontend keeps feeding queues (the
+    HdlGraphSlam locks make this safe). Use as a context manager around a
+    real-time run; ``stop`` re-raises the worker's first error.
+    """
 
     def __init__(self, slam: HdlGraphSlam, interval: Optional[float] = None):
-        raise NotImplementedError("AsyncBackend is ROADMAP Queue 1 item 13 of the port")
+        import threading
+
+        self.slam = slam
+        self.interval = interval if interval is not None else slam.cfg.backend.graph_update_interval
+        self._on_device = _on_device(slam.device)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self.cycles = 0
+        self.errors: list = []
+
+    def _loop(self):
+        while not self._stop.wait(self.interval):
+            try:
+                with GLOBAL_TIMER.span("async_optimize_cycle"):
+                    self._on_device(self.slam.optimize_cycle)
+                self.cycles += 1
+            except Exception as e:  # surfaced on stop; never kills ingestion
+                self.errors.append(e)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        if self.errors:
+            raise self.errors[0]

@@ -2,8 +2,16 @@
 
 A stage records host wall times into a registry that dumps as JSON or a
 Chrome trace-event file (Perfetto / chrome://tracing). StageTimer is a copy
-of the JAX package's; chip_smoke.py times the SLAM path's stages with it.
-Device traces are torch.profiler's (chip_smoke.py), not this module's.
+of the JAX package's. ``GLOBAL_TIMER`` holds the spans of
+SlamPipeline.process_frame (ingest, prefilter, odometry, floor_detection,
+optimize_cycle) and of AsyncBackend (async_optimize_cycle); the CLI resets
+it at start and writes it with ``--trace``.
+
+The spans are host wall time with no device synchronisation: on the card a
+span measures the time to launch its work (plus whatever host syncs the stage
+makes itself), not the device time. chip_smoke.py's StageClock, which
+synchronises at the end of each stage, is the source of stage times on the
+card; ``device_trace`` records a torch.profiler trace of device work.
 """
 
 from __future__ import annotations
@@ -24,6 +32,13 @@ class StageTimer:
         self.events: List[dict] = []
         self._t0 = time.perf_counter()
         self.keep_events = True
+
+    def reset(self) -> None:
+        """Forget every span recorded so far."""
+        self.totals.clear()
+        self.counts.clear()
+        self.events.clear()
+        self._t0 = time.perf_counter()
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -66,3 +81,22 @@ class StageTimer:
             with open(path, "w") as f:
                 f.write(s)
         return s
+
+
+GLOBAL_TIMER = StageTimer()
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """A torch.profiler trace (CPU and, when present, CUDA activity) of the
+    enclosed block, written to ``logdir`` as a Chrome trace file."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -291,12 +291,13 @@ def test_unported_registration_methods_raise(method, item):
         LoopDetector(port_loop_cfg(method))
 
 
-def test_unported_backend_branches_raise():
+def test_unported_backend_branches_raise(tmp_path):
+    """What the backend has not yet: the distributed and hierarchical
+    optimisers (item 14). The map and persistence (item 12) are ported: on
+    an empty backend they return as the JAX package's do."""
     slam = HdlGraphSlam(SlamConfig(), device="cpu")
-    for call in (lambda: slam.generate_map(), lambda: slam.save_map("x.pcd"), lambda: slam.dump("d"),
-                 lambda: slam.load("d")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    assert slam.generate_map() is None and slam.save_map(str(tmp_path / "x.pcd")) is False
+    assert slam.dump(str(tmp_path / "d")) and slam.load(str(tmp_path / "d")) and not slam.keyframes
     for field in ("distributed", "submap_block_size"):
         cfg = SlamConfig()
         setattr(cfg.backend, field, True if field == "distributed" else 16)

@@ -254,3 +254,140 @@ def test_check_knn_near_tie_gate(monkeypatch):
                                                                plain(q_, t_, k_ + 3)[1][:, 3:].contiguous()))
     with pytest.raises(RuntimeError):
         chip_smoke.check_knn(knn, t, t, rows, "farther", k=10, near_ties=True)
+
+
+# -- the cli and persistence phases' helpers ------------------------------------------
+
+
+def test_kitti_writer_reads_back_through_the_cli_reader(tmp_path):
+    """write_kitti_sequence: float32 (N, 4) bins, the stamps float(i) in
+    times.txt and the truth as a KITTI poses file read back exactly."""
+    from hdl_graph_slam_tpu_torch.io import kitti
+    from hdl_graph_slam_tpu_torch.pipeline import frames_from_kitti
+
+    rng = np.random.default_rng(70)
+    scans = [rng.uniform(-50, 50, (n, 3)).astype(np.float32) for n in (100, 37, 250)]
+    truth = [np.eye(4) for _ in scans]
+    for i, T in enumerate(truth):
+        T[:3, 3] = rng.normal(size=3)
+    seq, poses = chip_smoke.write_kitti_sequence(scans, truth, str(tmp_path))
+    frames = list(frames_from_kitti(seq))
+    assert [s for s, _, _ in frames] == [0.0, 1.0, 2.0]
+    for (_, xyz, refl), scan in zip(frames, scans):
+        np.testing.assert_array_equal(xyz, scan)
+        assert not refl.any()
+    np.testing.assert_array_equal(kitti.read_poses(poses), np.stack(truth))
+
+
+def test_voxel_cells_of_map_centres():
+    """Centres from the map's voxel pass map back to their cells, within
+    half an ulp of the coordinate; a point off its centre is flagged."""
+    from hdl_graph_slam_tpu_torch.core import cloud
+    from hdl_graph_slam_tpu_torch.ops import voxel
+
+    rng = np.random.default_rng(71)
+    xyz = rng.uniform(-80, 80, (2000, 3)).astype(np.float32)
+    out = voxel.occupied_voxel_centers(cloud.from_numpy(xyz, capacity=2048, device="cpu"), 0.05, max_voxels=2048)
+    centres = out.to_numpy()
+    cells, ulps = chip_smoke.voxel_cells(centres, 0.05)
+    assert ulps <= 0.5
+    np.testing.assert_array_equal(chip_smoke.cell_keys(cells),
+                                  voxel.voxel_keys(out.xyz, out.mask, 0.05)[out.mask].numpy())
+    assert chip_smoke.voxel_cells(centres + np.float32(0.01), 0.05)[1] > 2.0
+
+
+def test_face_rule_explains_rounding_and_nothing_else():
+    """Points moved across a voxel face by float32 rounding change only
+    voxels face_voxels lists; a point moved by a voxel does not."""
+    from hdl_graph_slam_tpu_torch.backend import KeyFrameSnapshot
+    from hdl_graph_slam_tpu_torch.backend.map_cloud import MapCloudGenerator
+    from hdl_graph_slam_tpu_torch.core import cloud
+
+    rng = np.random.default_rng(72)
+    res = float(np.float32(0.05))
+    cells = rng.integers(-400, 400, (3000, 3))
+    xyz = ((cells + rng.uniform(0.1, 0.9, (3000, 3))) * res).astype(np.float32)
+    xyz[:20, 0] = (cells[:20, 0] * res).astype(np.float32)  # 20 points on a face
+    snap = [KeyFrameSnapshot(pose=np.eye(4), cloud=cloud.from_numpy(xyz, capacity=4096, device="cpu"))]
+    ambiguous, near, total = chip_smoke.face_voxels(snap, 0.05)
+    assert total == 3000 and near >= 20
+    base = MapCloudGenerator().generate(snap, 0.05)
+    nudged = xyz.copy()
+    nudged[:20, 0] = np.nextafter(nudged[:20, 0], np.float32(-np.inf))  # an ulp across the face
+    moved = MapCloudGenerator().generate([KeyFrameSnapshot(pose=np.eye(4), cloud=cloud.from_numpy(
+        nudged, capacity=4096, device="cpu"))], 0.05)
+    cmp = chip_smoke.compare_maps(base, moved, ambiguous, 0.05)
+    assert cmp["differ"] > 0 and cmp["unexplained"] == 0 and not cmp["capped"]
+    far = xyz.copy()
+    far[25, 0] += np.float32(3 * res)
+    jumped = MapCloudGenerator().generate([KeyFrameSnapshot(pose=np.eye(4), cloud=cloud.from_numpy(
+        far, capacity=4096, device="cpu"))], 0.05)
+    assert chip_smoke.compare_maps(base, jumped, ambiguous, 0.05)["unexplained"] > 0
+
+
+def test_compare_maps_leaves_out_the_cut_of_capped_maps(monkeypatch):
+    """Two maps at the voxel cap keep the lowest keys of their occupied
+    sets: a voxel one set lacks (here on a face) moves the other's cut up
+    by one, and that cut is not a difference; below the lower of the two
+    largest keys every difference counts."""
+    monkeypatch.setattr(chip_smoke, "MAP_MAX_POINTS", 4)
+    res = float(np.float32(0.05))
+
+    def voxels(*cells):
+        return np.array([[(i + 0.5) * res, 0.5 * res, 0.5 * res] for i in cells], np.float32)
+
+    face = chip_smoke.cell_keys(np.array([[2, 0, 0]]))
+    a, b = voxels(0, 1, 2, 3), voxels(0, 1, 3, 4)  # b's occupied set lacks voxel 2
+    assert chip_smoke.compare_maps(a, b, face, 0.05) == dict(voxels=[4, 4], capped=True, differ=1, unexplained=0)
+    assert chip_smoke.compare_maps(a, b, np.zeros(0, np.int64), 0.05)["unexplained"] == 1
+    assert chip_smoke.compare_maps(a, voxels(0, 1, 2, 4), face, 0.05)["unexplained"] == 1
+
+
+def test_cli_child_runs_the_module_and_hands_back_launches(tmp_path):
+    """The cli phase's child process runs hdl_graph_slam_tpu_torch.run as
+    ``python -m`` does and writes the launch counts even when the CLI exits
+    (here on --help)."""
+    path = str(tmp_path / "launches.json")
+    proc = subprocess.run([sys.executable, "-c", chip_smoke.CLI_CHILD, path, "--help"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0 and "--kitti" in proc.stdout and "--device" in proc.stdout
+    import json
+
+    with open(path) as f:
+        launches = chip_smoke.format_launches(**json.load(f))
+    assert set(launches) >= set(chip_smoke.CLI_REQUIRED) and set(launches.values()) == {0}
+
+
+def test_compare_g2o_allows_only_quaternion_last_digits(tmp_path):
+    """A load and re-save of 400 random poses (seed 73) moves some
+    quaternion components by one in their last digit, in the JAX package
+    exactly as in the port (the same re-saved text); compare_g2o counts
+    those and nothing else, and flags any other token."""
+    from scipy.spatial.transform import Rotation
+
+    from hdl_graph_slam_tpu.graph import io as jgio
+    from hdl_graph_slam_tpu_torch.graph import io as gio
+    from hdl_graph_slam_tpu_torch.graph import types
+
+    rng = np.random.default_rng(73)
+    g = types.GraphBuilder()
+    for i in range(400):
+        T = np.eye(4)
+        T[:3, :3] = Rotation.from_rotvec(rng.normal(0, 1, 3)).as_matrix()
+        T[:3, 3] = rng.normal(0, 50, 3)
+        g.add_se3_node(T)
+        if i:
+            g.add_se3_edge(i - 1, i, np.linalg.inv(g.poses[i - 1]) @ T, np.eye(6))
+    first, port, jax_ = (str(tmp_path / f) for f in ("first.g2o", "port.g2o", "jax.g2o"))
+    gio.save_g2o(g, first)
+    gio.save_g2o(gio.load_g2o(first), port)
+    jgio.save_g2o(jgio.load_g2o(first), jax_)
+    assert open(port).read() == open(jax_).read()
+    cmp = chip_smoke.compare_g2o(first, port)
+    assert cmp["lines"] == 799 and cmp["other_tokens_differ"] == 0
+    assert 0 < cmp["quaternion_values_differ"] and cmp["quaternion_max_abs_err"] <= chip_smoke.QUAT_REDUMP_ATOL
+    lines = open(port).read().splitlines()
+    lines[3] = lines[3].replace(lines[3].split()[2], "1.5", 1)  # a translation
+    with open(port, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    assert chip_smoke.compare_g2o(first, port)["other_tokens_differ"] == 1

@@ -98,14 +98,14 @@ def test_run_windowed_matches_jax_pipeline():
 
 
 def test_unported_pipeline_branches_raise():
-    """What the port has not yet: the backend on a worker thread (item 13)
-    and a registration method other than GICP (NDT, item 8)."""
+    """What the port has not yet: a registration method other than GICP
+    (NDT, item 8). The backend on a worker thread (item 13) is ported:
+    AsyncBackend builds and run_windowed(overlap_backend=True) runs."""
     cfg = course_cfg(SlamConfig(), RegistrationConfig)
     pipe = SlamPipeline(cfg, cloud_capacity=CLOUD_CAPACITY, device="cpu")
     frames, _ = course()
-    for call in (lambda: pipe.run_windowed(frames[:2], overlap_backend=True), lambda: AsyncBackend(pipe.slam)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    assert pipe.run_windowed(frames[:2], overlap_backend=True, raw_capacity=RAW_CAPACITY).num_frames == 2
+    assert AsyncBackend(pipe.slam).interval == cfg.backend.graph_update_interval
     cfg = course_cfg(SlamConfig(), RegistrationConfig)
     cfg.odometry.registration = RegistrationConfig(registration_method="NDT_OMP")
     with pytest.raises(NotImplementedError, match="item 8"):
