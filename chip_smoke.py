@@ -8,7 +8,8 @@ before the last line:
 
 1. env     GPU name and power limit (nvidia-smi), torch and CUDA versions;
            TF32 must be off.
-2. build   nvcc builds the kernels of hdl_graph_slam_tpu_torch/csrc/.
+2. build   nvcc builds the kernels of hdl_graph_slam_tpu_torch/csrc/, one
+           process per source, started together.
 3. kernels At 8192 x 8192, on a prefiltered course scan pair and on uniform
            random clouds with padded rows, each kernel is held against its
            plain PyTorch version on the card and checked row by row in
@@ -23,6 +24,18 @@ before the last line:
            stage, a cloud with 25 valid rows, and an integer lattice with
            duplicated points, where ties are exact and the kernels must
            match their plain twins index for index.
+   ndt_kernels  the NDT kernels (csrc/ndt.cu) against their plain twins on
+           bench frames 0 (target) and 1 (source, at a pose off the truth),
+           the target at 2.0 m and at the imu preset's 10 m cells, DIRECT7
+           and DIRECT1: the association identical but on rows with a point
+           within FACE_ULPS eps32 of a cell face (judged in float64), g and
+           H within 1e-4 of the largest |entry|, scores within 1e-5
+           relative, 10 trial poses' scores likewise with the same argmin,
+           a batch of 3 equal to the batch of 1 row for row, bit for bit;
+           knn_select at k = 8 (KDTREE's cell candidates) through the
+           float64 near-tie gate; preprocess_target's time. Timed as the
+           kernel phase, with each kernel's bound from the bytes and
+           operations this run's inputs need (ndt_work, ndt_bounds).
 4. main    bench.py's windowed FAST_GICP odometry (its configs, its course
            with seed 0, 16384-row raw scans, 8192-row filtered clouds) through
            the port's OdometryWindow on cuda, with bench.py's gates; kernel
@@ -33,6 +46,13 @@ before the last line:
    the device idle share twice: over the profiled wall time (which the
    profiler inflates) and over the unprofiled main run's wall time per
    frame.
+   ndt_main  the same course through the OdometryWindow with NDT_OMP
+           DIRECT7, 2.0 m cells, 0.5 m re-association
+           (benchmarks/r3_method_window.py's NDT row), bench.py's gates; fps,
+           Newton iterations, launches and host syncs a frame, device
+           operations and idle share over 16 traced frames. ndt_kdtree: its
+           first 32 frames with KDTREE (knn_select at k = 8), the final x
+           within 0.1 m of ndt_main's at frame 32 instead of the 3%.
 5. golden_course  benchmarks/golden_town.py's 601 ray-cast town scans, cast
            in a process pool (the script's, not the package's).
 6. kernel_batched  the batched kernels (nn1_batched, knn_select_batched) at
@@ -81,6 +101,18 @@ before the last line:
            frames of a fresh pipeline. Then the STATISTICAL prefilter's path:
            run(device_odometry=True) over 48 frames against run_windowed,
            odometry within 1e-4.
+   ndt_kernels (case imu)  the ndt_kernels gates and times at the imu
+           path's shapes: golden_town frames 0 and 1 through the imu
+           preset's prefilter at 16384 rows, the target at 10 m cells with
+           max_voxels 16384, DIRECT7.
+   imu     the imu preset (NDT_OMP at 10 m cells, deskewing, the IMU
+           frontend; core/config.py preset_imu) through SlamPipeline.run's
+           per-frame path at the CLI's 16384 rows over golden_town's first
+           100 frames, each after an IMU message built from the truth
+           (utils/course.py golden_town_imu). Gates: every frame, det/orth <
+           1e-4, the odometry ATE within a slack of the JAX package's on the
+           same frames and messages (tools/cli_witness.py), every kernel of
+           the path launched.
 11. cli    the offline CLI as a user runs it: golden_town's 601 raw scans
            written as a KITTI sequence (float32 (N, 4) bins, times.txt with
            the stamps float(i), a truth poses file), then ``python -m
@@ -105,7 +137,8 @@ before the last line:
            synchronous run over 48 frames (odometry within 1e-6 m, final
            poses within 1e-2 m), the wall time of both.
 13. The kernels line (every kernel entry point, with the cli path's
-   launches), the card's name and power limit, then the last line
+   launches; the NDT kernels with ndt_main's and imu's, knn_select k = 8
+   with ndt_kdtree's), the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
 Phases run in that order, every one on the card.
@@ -126,7 +159,7 @@ import sys
 import time
 import warnings
 from collections import defaultdict
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -173,6 +206,43 @@ ODOM_PARITY_ATOL = 1e-4  # run(device_odometry=True) vs run_windowed: one device
 # floor may differ by an iteration, at poses equal far below 1e-6 m
 GRAPH_POSE_ATOL = 1e-6
 GRAPH_CHI2_RTOL = 1e-9
+# NDT (registration/ndt.py, csrc/ndt.cu): the cells of benchmarks/
+# r3_method_window.py's NDT row (2.0 m) and of the imu preset (10 m)
+NDT_RESOLUTIONS = (2.0, 10.0)
+NDT_TRIALS = 10  # ndt.align's num_line_search
+# g and H, kernel vs plain on the same association: block-order float32
+# partials summed in float64 against one float32 einsum sum, of the largest
+# |entry| (the rotation block is ~r_max^2 times the translation block)
+NDT_DERIV_TOL = 1e-4
+NDT_SCORE_RTOL = 1e-5
+# fp32 operations the kernels do (csrc/ndt.cu), per found (point, cell) pair
+# and per valid point: the derivatives' q, B q, q.a, exp and four moments
+# (67) and the point's block algebra and transform (190); the score's q, B q,
+# q.a and exp (28) and its transform (18)
+NDT_DERIV_OPS_PER_PAIR, NDT_DERIV_OPS_PER_POINT = 67, 190
+NDT_SCORE_OPS_PER_PAIR, NDT_SCORE_OPS_PER_POINT = 28, 18
+NDT_COUNTERS = ("associate", "derivatives", "trial_scores")  # registration/ndt.py wrappers
+# benchmarks/r3_method_window.py:46-54, the NDT row
+NDT_MAIN_REG = dict(registration_method="NDT_OMP", reg_resolution=2.0, reg_nn_search_method="DIRECT7",
+                    reg_reassoc_displacement=0.5)
+NDT_KDTREE_FRAMES = 32  # the KDTREE path (knn_select k = 8): the first bench frames
+# over 32 frames the first frames' transient (both modes start short of the
+# drive) outweighs 3% of it, so KDTREE is held to DIRECT7's position at the
+# same frame instead: tests/test_registration.py TestNdtKdtreeMode's 0.1 m
+# between the two modes
+NDT_KDTREE_VS_DIRECT7_M = 0.1
+IMU_FRAMES = 100  # the imu phase: golden_town's first frames
+IMU_CLOUD_CAPACITY = 16384  # the CLI's default --cloud-capacity
+IMU_REQUIRED = ("ndt_associate", "ndt_derivatives", "ndt_trial_scores", "radius_count", "nn1_batched")
+# tools/cli_witness.py imu_feed (--frames 100): the JAX package's
+# odometry-keyframe ATE over the same frames and IMU messages on the CPU.
+# The port on the CPU gave 8.3240 m there, its poses at most 0.012 m from
+# JAX's: a rounding-level pose difference moves DIRECT7 face points to
+# another cell, and the chained frames drift apart within the Newton loop's
+# 0.01 step tolerance (tests/test_torch_ndt.py). The card may exceed JAX's
+# ATE by 0.05 m, four times that largest pose difference.
+IMU_JAX_ATE_ODOM_M = 8.325281271492258
+IMU_ATE_SLACK_M = 0.05
 
 
 T0 = time.perf_counter()
@@ -359,10 +429,11 @@ def bench_configs() -> tuple:
     return pf_cfg, odo_cfg
 
 
-def main_path(scans) -> tuple:
+def main_path(scans, odo_cfg=None) -> tuple:
     """The main path as bench.py drives it, on cuda: an OdometryWindow that
     filters to N_KERNEL rows, the first scan's cloud for its initial state,
-    and the other scans stacked at the raw capacity with 0.1 s stamps.
+    and the other scans stacked at the raw capacity with 0.1 s stamps; with
+    ``odo_cfg`` instead of bench.py's odometry config if given.
     Returns (win, first, xyz, mask, stamps)."""
     import torch
     from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
@@ -370,8 +441,8 @@ def main_path(scans) -> tuple:
     from hdl_graph_slam_tpu_torch.frontend.window import stack_scans
     from hdl_graph_slam_tpu_torch.utils.course import BENCH_RAW_CAPACITY
 
-    pf_cfg, odo_cfg = bench_configs()
-    win = OdometryWindow(odo_cfg, prefilter_cfg=pf_cfg, out_capacity=N_KERNEL, device="cuda")
+    pf_cfg, bench_odo = bench_configs()
+    win = OdometryWindow(odo_cfg or bench_odo, prefilter_cfg=pf_cfg, out_capacity=N_KERNEL, device="cuda")
     xyz, mask = stack_scans(scans[1:], capacity=BENCH_RAW_CAPACITY)
     stamps = (0.1 * np.arange(1, len(scans))).astype(np.float32)
     first = cloudlib.from_numpy(scans[0], capacity=BENCH_RAW_CAPACITY, device="cuda")
@@ -581,6 +652,20 @@ def top_device(prof, n: int) -> list:
     return [dict(name=k.key[:80], calls=k.count, total_ms=dev_us(k) * 1e-3) for k in averages]
 
 
+def count_host_syncs(fn) -> tuple:
+    """(fn's result, the host syncs it made: torch.cuda's sync debug warnings)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
 class StageClock:
     """Host wall time of wrapped methods (the script's instrumentation: the
     package has none), kept in a utils.metrics.StageTimer. A wrapper marks
@@ -606,14 +691,8 @@ class StageClock:
         def wrapper(*args, **kwargs):
             with torch.profiler.record_function(f"slam/{key}"), clock.timer.span(key):
                 if count_syncs:
-                    with warnings.catch_warnings(record=True) as caught:
-                        warnings.simplefilter("always")
-                        torch.cuda.set_sync_debug_mode("warn")
-                        try:
-                            out = orig(*args, **kwargs)
-                        finally:
-                            torch.cuda.set_sync_debug_mode(0)
-                    clock.syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+                    out, syncs = count_host_syncs(lambda: orig(*args, **kwargs))
+                    clock.syncs.append(syncs)
                 else:
                     out = orig(*args, **kwargs)
                 if sync:
@@ -1047,25 +1126,41 @@ def floor_phase(keyframes) -> dict:
 LAUNCH_COUNTERS = ("nn1", "knn_select", "nn1_batched", "knn_select_batched", "radius_count")
 
 
+def _ndt():
+    from hdl_graph_slam_tpu_torch.registration import ndt
+
+    return ndt
+
+
 def reset_launches(knn) -> None:
     for name in LAUNCH_COUNTERS:
         getattr(knn, name).launches = 0
     knn.knn_select.launches_k = dict.fromkeys(knn.KNN_SELECT_KS, 0)
+    for name in NDT_COUNTERS:
+        getattr(_ndt(), name).launches = 0
 
 
 def format_launches(counts: dict, per_k: dict) -> dict:
-    """Launches per kernel entry: ``counts`` per counter of LAUNCH_COUNTERS,
-    ``per_k`` knn_select's per k; the k = 20 (GICP) count goes under the
-    plain name."""
+    """Launches per kernel entry: ``counts`` per counter of LAUNCH_COUNTERS
+    and ``ndt_<counter>`` of NDT_COUNTERS, ``per_k`` knn_select's per k; the
+    k = 20 (GICP) count goes under the plain name."""
     out = {name: counts[name] for name in LAUNCH_COUNTERS}
+    out.update({f"ndt_{name}": counts.get(f"ndt_{name}", 0) for name in NDT_COUNTERS})
     out.update({f"knn_select_k{k}": v for k, v in per_k.items() if int(k) != K_NEIGHBOURS})
     out["knn_select"] = {int(k): v for k, v in per_k.items()}[K_NEIGHBOURS]
     return out
 
 
+def launch_counts(knn) -> dict:
+    """The raw counters format_launches reads."""
+    counts = {name: getattr(knn, name).launches for name in LAUNCH_COUNTERS}
+    counts.update({f"ndt_{name}": getattr(_ndt(), name).launches for name in NDT_COUNTERS})
+    return counts
+
+
 def read_launches(knn) -> dict:
     """Launches per kernel entry since reset_launches."""
-    return format_launches({name: getattr(knn, name).launches for name in LAUNCH_COUNTERS}, knn.knn_select.launches_k)
+    return format_launches(launch_counts(knn), knn.knn_select.launches_k)
 
 
 def golden_frames(golden, n=None) -> list:
@@ -1224,6 +1319,310 @@ def host_phase(knn, golden) -> dict:
     return dict(host=out["launches"], host_statistical=launches, host_statistical_windowed=launches_windowed)
 
 
+# -- NDT: its kernels, the bench course through the NDT window, the imu preset ---------------
+
+
+def ndt_work(tgt, xyz, mask, T, idx, found, method: str) -> dict:
+    """What this run's data asks of the NDT kernels, for their bounds: rows
+    n, valid rows, K, the association's grid reads (valid rows' neighbour
+    keys inside the dense grid), the found pairs of valid rows and the
+    distinct cells those name."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.ops import voxel
+
+    keys = voxel.neighbor_query_keys(tgt.voxels, se3.transform_points(T, xyz), mask,
+                                     voxel.neighbor_offsets(method, device=xyz.device))
+    G = voxel.grid_dim(tgt.grid)
+    i, j, k = voxel._split_key(keys)
+    in_grid = (keys != voxel._LOCAL_INVALID) & (i < G) & (j < G) & (k < G)
+    pairs = found & mask[..., None]
+    return dict(n=int(mask.shape[-1]), valid=int(mask.sum()), K=int(idx.shape[-1]), grid_reads=int(in_grid.sum()),
+                found_pairs=int(pairs.sum()), cells_read=int(torch.unique(idx[pairs]).numel()))
+
+
+def ndt_bounds(kernel: str, w: dict, peak_flops: float, trials: int = 1) -> tuple:
+    """(bound ms, "bytes" or "operations") of an NDT kernel on this run's
+    inputs (ndt_work's counts ``w``). Each byte the function needs is read
+    once: the mask of every row (1), the points of the valid rows (12), each
+    pose (64); for the association the grid cell of each neighbour key
+    inside the grid (4); for the others the found flags of the valid rows
+    (1 per pair), the cell index of each found pair (4) and the 48-byte row
+    of each cell those name. Each output byte is written once: the
+    association's (n, K) indices and flags (5 per pair), g, H and the score
+    (43 floats), the trial scores (4 each). Operations per found pair and
+    valid point (NDT_*_OPS)."""
+    pts = w["n"] + 12 * w["valid"]
+    if kernel == "ndt_associate":
+        nbytes, ops = pts + 64 + 4 * w["grid_reads"] + 5 * w["n"] * w["K"], 0
+    else:
+        reads = pts + w["valid"] * w["K"] + 4 * w["found_pairs"] + 48 * w["cells_read"]
+        if kernel == "ndt_derivatives":
+            nbytes = reads + 64 + 43 * 4
+            ops = w["found_pairs"] * NDT_DERIV_OPS_PER_PAIR + w["valid"] * NDT_DERIV_OPS_PER_POINT
+        else:
+            nbytes = reads + trials * (64 + 4)
+            ops = trials * (w["found_pairs"] * NDT_SCORE_OPS_PER_PAIR + w["valid"] * NDT_SCORE_OPS_PER_POINT)
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / peak_flops
+    return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def check_ndt(tgt, src, res: float, method: str, case: str, peak_flops: float, timed: bool) -> dict:
+    """The three NDT kernels against their plain twins on one target and
+    source cloud, at a pose off the truth: the association identical but on
+    rows with a point within FACE_ULPS eps32 of a cell face (judged in
+    float64); g and H within NDT_DERIV_TOL of the largest |entry|, the score
+    within NDT_SCORE_RTOL; the NDT_TRIALS trial scores along the Newton
+    direction within NDT_SCORE_RTOL and the same argmin; a batch of 3 (the
+    pose and two others) equal row for row, bit for bit, to the batch of 1.
+    With ``timed``, each kernel and its twin are timed and its bound
+    computed (ndt_work, ndt_bounds); returns those rows by kernel."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.ops import voxel
+
+    ndt = _ndt()
+    dev = torch.device("cuda")
+    n = src.capacity
+    xyz, mask = src.xyz[None].contiguous(), src.mask[None].contiguous()
+    twists = torch.tensor([[0.3, -0.1, 0.02, 0.002, -0.003, 0.01], [0.1, 0.05, 0.0, 0.0, 0.0, -0.02],
+                           [-0.2, 0.0, 0.05, 0.004, 0.0, 0.0]], device=dev)
+    Tb = se3.se3_exp(twists)  # (3, 4, 4)
+    T = Tb[:1].contiguous()
+    halves = torch.tensor([0.5**i for i in range(NDT_TRIALS)], device=dev)
+    _, near = near_faces(src.xyz.cpu().numpy(), T[0].cpu().numpy(), res)
+    face = torch.from_numpy(near.any(1)).to(dev) & src.mask
+    ik, fk = ndt.associate(tgt, xyz, mask, T, method)
+    ip, fp = ndt.associate_plain(tgt, xyz, mask, T, method)
+    gk, Hk, sk = ndt.derivatives(tgt, xyz, mask, T, ik, fk)
+    gp, Hp, sp = ndt.derivatives_plain(tgt, xyz, mask, T, ik, fk)
+    d = ndt._newton_direction(Hk, gk, kdtree=False)
+    ddir = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    Ts = se3.compose(se3.se3_exp(0.1 * halves[None, :, None] * ddir[:, None]), T[:, None]).contiguous()
+    tk = ndt.trial_scores(tgt, xyz, mask, Ts, ik, fk)
+    tp = ndt.trial_scores_plain(tgt, xyz, mask, Ts, ik, fk)
+    xb, mb = xyz.expand(3, -1, -1).contiguous(), mask.expand(3, -1).contiguous()
+    ib, fb = ndt.associate(tgt, xb, mb, Tb, method)
+    gb, Hb, sb = ndt.derivatives(tgt, xb, mb, Tb, ib, fb)
+    tb = ndt.trial_scores(tgt, xb, mb, Ts.expand(3, -1, -1, -1).contiguous(), ib, fb)
+    torch.cuda.synchronize()
+    differ = ((ik != ip) | (fk != fp)).any(-1)[0]
+    w = ndt_work(tgt, xyz, mask, T, ik, fk, method)
+    cells = int(tgt.voxels.mask.sum())
+    row = dict(
+        phase="ndt_kernels", case=case, resolution=res, method=method, n=n, valid=w["valid"], cells=cells,
+        grid=voxel.grid_dim(tgt.grid), found_pairs=w["found_pairs"], cells_read=w["cells_read"],
+        face_rows=int(face.sum()), rows_differ=int(differ.sum()), rows_differ_off_face=int((differ & ~face).sum()),
+        g_err=float((gk - gp).abs().max() / gp.abs().max()),
+        H_err=float((Hk - Hp).abs().max() / Hp.abs().max()),
+        score_rel_err=float(((sk - sp).abs() / sp.abs()).max()),
+        trial_rel_err=float(((tk - tp).abs() / tp.abs()).max()),
+        trial_argmin=[int(tk.argmin()), int(tp.argmin())],
+        batch_rows_identical=bool(torch.equal(ib[:1], ik) and torch.equal(fb[:1], fk)
+                                  and torch.equal(gb[:1], gk) and torch.equal(Hb[:1], Hk)
+                                  and torch.equal(sb[:1], sk) and torch.equal(tb[:1], tk)),
+    )
+    emit(row)
+    what = f"{case} {res} {method}"
+    require(row["rows_differ_off_face"] == 0, f"ndt associate {what}: rows differ off faces: {row}")
+    require(row["g_err"] <= NDT_DERIV_TOL and row["H_err"] <= NDT_DERIV_TOL, f"ndt derivatives {what}: {row}")
+    require(row["score_rel_err"] <= NDT_SCORE_RTOL and row["trial_rel_err"] <= NDT_SCORE_RTOL,
+            f"ndt scores {what}: {row}")
+    require(row["trial_argmin"][0] == row["trial_argmin"][1], f"ndt trial argmin {what}: {row}")
+    require(row["batch_rows_identical"], f"ndt batch of 3 vs 1 {what}: {row}")
+    if not timed:
+        return {}
+    errs = dict(ndt_associate=float((ik != ip)[~face[None]].abs().sum()),
+                ndt_derivatives=float(max((gk - gp).abs().max(), (Hk - Hp).abs().max())),
+                ndt_trial_scores=float((tk - tp).abs().max()))
+    calls = dict(
+        ndt_associate=(lambda: ndt.associate(tgt, xyz, mask, T, method),
+                       lambda: ndt.associate_plain(tgt, xyz, mask, T, method)),
+        ndt_derivatives=(lambda: ndt.derivatives(tgt, xyz, mask, T, ik, fk),
+                         lambda: ndt.derivatives_plain(tgt, xyz, mask, T, ik, fk)),
+        ndt_trial_scores=(lambda: ndt.trial_scores(tgt, xyz, mask, Ts, ik, fk),
+                          lambda: ndt.trial_scores_plain(tgt, xyz, mask, Ts, ik, fk)))
+    out = {}
+    for name, (fn, plain) in calls.items():
+        bound, by = ndt_bounds(name, w, peak_flops, trials=NDT_TRIALS)
+        out[name] = dict(phase="ndt_kernels", kernel=name, case=case, resolution=res, method=method, cells=cells,
+                         max_abs_err=errs[name], bound_ms=bound, bound_by=by, **w, **time_rows(fn, plain))
+        emit(out[name])
+    return out
+
+
+def ndt_kernels_phase(knn, clouds, peak_flops: float) -> dict:
+    """check_ndt on bench frames 0 (target) and 1 (source), the target at
+    the NDT_RESOLUTIONS cells (max_voxels N_KERNEL), DIRECT7 and DIRECT1,
+    timed at ndt_main's cells; knn_select at k = 8 (KDTREE's cell
+    candidates) through check_knn's float64 near-tie gate;
+    preprocess_target's time. Returns the timed rows by kernel."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.ops import voxel
+
+    ndt = _ndt()
+    tgt_cloud, src = clouds[0][0], clouds[1][0]
+    T = se3.se3_exp(torch.tensor([0.3, -0.1, 0.02, 0.002, -0.003, 0.01], device="cuda"))  # check_ndt's pose
+    timed = {}
+    for res in NDT_RESOLUTIONS:
+        G = voxel.dense_grid_size_for(res)
+        tgt = ndt.preprocess_target(tgt_cloud, res, max_voxels=N_KERNEL, grid_size=G)
+        emit(dict(phase="ndt_kernels", case="preprocess_target", resolution=res, grid=G,
+                  cells=int(tgt.voxels.mask.sum()),
+                  ms=time_ms(lambda: ndt.preprocess_target(tgt_cloud, res, max_voxels=N_KERNEL, grid_size=G),
+                             reps=5, batches=3)))
+        main_cells = res == NDT_MAIN_REG["reg_resolution"]
+        for method in ("DIRECT7", "DIRECT1"):
+            t = check_ndt(tgt, src, res, method, "bench", peak_flops, timed=method == "DIRECT7")
+            if main_cells:
+                timed.update(t)
+        # KDTREE's cell candidates: the 8 nearest cell means of each moved point
+        moved = torch.where(src.mask[:, None], se3.transform_points(T, src.xyz), 1.0e6).contiguous()
+        means = torch.where(tgt.voxels.mask[:, None], tgt.voxels.means, 1.0e6).contiguous()
+        row = dict(phase="ndt_kernels", resolution=res, **check_knn(knn, moved, means, src.mask, "ndt_kdtree", k=8,
+                                                                    near_ties=True),
+                   launch=knn.launch_info("knn_select", src.capacity, means.shape[0], k=8))
+        if main_cells:
+            row.update(time_rows(lambda: knn.knn_select(moved, means, 8), lambda: knn.knn_select_plain(moved, means, 8)))
+            row["valid_pairs"] = int(src.mask.sum()) * int(tgt.voxels.mask.sum())
+            timed["knn_select_k8"] = row
+        emit(row)
+    return timed
+
+
+def ndt_imu_kernels_phase(golden, peak_flops: float) -> dict:
+    """check_ndt at the imu path's shapes: golden_town frames 0 (target) and
+    1 (source) through the imu preset's prefilter at IMU_CLOUD_CAPACITY rows
+    (no deskewing), the target as the preset's ScanMatchingOdometry builds
+    it (factory.make_target: 10 m cells, max_voxels IMU_CLOUD_CAPACITY, the
+    dense grid), DIRECT7, timed. Returns the timed rows by kernel."""
+    from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
+    from hdl_graph_slam_tpu_torch.core.config import PRESETS
+    from hdl_graph_slam_tpu_torch.frontend import Prefilter
+    from hdl_graph_slam_tpu_torch.registration import factory
+
+    cfg = PRESETS["imu"]()
+    reg = cfg.odometry.registration
+    pf = Prefilter(cfg.prefilter, out_capacity=IMU_CLOUD_CAPACITY, device="cuda")
+    tgt_cloud, src = (pf(cloudlib.from_numpy(s, device="cuda")) for s in golden["scans"][:2])
+    tgt = factory.make_target(reg, tgt_cloud, IMU_CLOUD_CAPACITY)
+    return check_ndt(tgt, src, reg.reg_resolution, reg.reg_nn_search_method, "imu", peak_flops, timed=True)
+
+
+def ndt_odometry_config(reg: dict):
+    """bench_configs()'s odometry with the NDT registration ``reg``."""
+    from hdl_graph_slam_tpu_torch.core.config import OdometryConfig, RegistrationConfig
+
+    return OdometryConfig(keyframe_delta_trans=2.0, keyframe_delta_time=1e9, registration=RegistrationConfig(**reg))
+
+
+def ndt_window_phase(knn, scans, phase: str, reg: dict, frames: int, required: tuple, reference=None) -> tuple:
+    """The bench course's first ``frames`` frames through an OdometryWindow
+    with NDT (``reg``) on the card, as main drives GICP: bench.py's gates
+    (final x within 3% of the drive, > 90% converged, det/orth < 1e-4) or,
+    given the ``reference`` poses of another NDT run over the same frames,
+    the final x within NDT_KDTREE_VS_DIRECT7_M of its x there instead of the
+    3%; fps, Newton iterations, keyframes and the launches of each kernel in
+    ``required``; then 16 traced frames (device operations and idle share)
+    and the host syncs of 16 frames. Returns (launches, poses)."""
+    from hdl_graph_slam_tpu_torch.utils.course import BENCH_STEP
+
+    win, first, xyz, mask, stamps = main_path(scans[:frames + 1], ndt_odometry_config(reg))
+    reset_launches(knn)
+    state0, odoms, status, dt = drive_window(win, first, xyz, mask, stamps)
+    launches = read_launches(knn)
+    conv = status["converged"].cpu().numpy()
+    dist = BENCH_STEP * frames
+    Rs = odoms[:, :3, :3].astype(np.float64)
+    row = dict(
+        phase=phase, frames=frames, registration=reg, seconds=dt, fps=frames / dt, final_x=float(odoms[-1, 0, 3]),
+        drive_m=dist, drift_fraction=abs(float(odoms[-1, 0, 3]) - dist) / dist, converged_fraction=float(conv.mean()),
+        reference_x=None if reference is None else float(reference[frames - 1, 0, 3]),
+        newton_iterations_per_frame=float(status["iterations"].double().mean()),
+        keyframes=int(status["keyframe_switched"].sum()),
+        det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
+        orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
+        launches=launches, launches_per_frame={k: v / frames for k, v in launches.items() if v},
+    )
+    n = min(16, frames)
+    _, syncs = count_host_syncs(lambda: win.run(state0, xyz[:n], mask[:n], stamps[:n])[1].cpu())
+    row["host_syncs_per_frame"] = syncs / n
+    prof = profile_frames(win, state0, xyz, mask, stamps, n, dt / frames)
+    row.update({k: prof[k] for k in ("device_ops_per_frame", "device_busy_ms_per_frame", "device_idle_share_unprofiled",
+                                     "top_device", "port_kernels")})
+    emit(row)
+    require(bool(np.isfinite(odoms).all()), f"{phase}: non-finite pose")
+    if reference is None:
+        require(row["drift_fraction"] < 0.03, f"{phase}: final x {row['final_x']} vs drive {dist}")
+    else:
+        ref_x = float(reference[frames - 1, 0, 3])
+        require(abs(row["final_x"] - ref_x) < NDT_KDTREE_VS_DIRECT7_M,
+                f"{phase}: final x {row['final_x']} vs {ref_x} of the reference run")
+    require(row["converged_fraction"] > 0.9, f"{phase}: only {row['converged_fraction']:.0%} of frames converged")
+    require(row["det_err"] < 1e-4 and row["orth_err"] < 1e-4, f"{phase}: rotation drift {row['det_err']}, "
+                                                               f"{row['orth_err']}")
+    require(all(launches[k] >= 1 for k in required), f"{phase} path did not go through every kernel: {launches}")
+    return launches, odoms
+
+
+def imu_phase(knn, golden) -> dict:
+    """The imu preset end to end: SlamPipeline(PRESETS["imu"](),
+    cloud_capacity=IMU_CLOUD_CAPACITY) on the card over golden_town's first
+    IMU_FRAMES frames, each after its IMU message built from the truth
+    (utils/course.py golden_town_imu). Gates: every frame processed,
+    det/orth < 1e-4 on every odometry pose, the odometry keyframes' ATE
+    within IMU_ATE_SLACK_M of the JAX package's on the same frames and
+    messages (IMU_JAX_ATE_ODOM_M, tools/cli_witness.py imu_feed), every
+    kernel of IMU_REQUIRED launched."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core.config import PRESETS
+    from hdl_graph_slam_tpu_torch.io import trajectory as traj_io
+    from hdl_graph_slam_tpu_torch.pipeline import SlamPipeline
+    from hdl_graph_slam_tpu_torch.utils.course import golden_town_imu
+
+    scans, truth = golden["scans"][:IMU_FRAMES], golden["truth"][:IMU_FRAMES]
+    clock = StageClock()
+    slam_stages(clock, count_syncs=False)
+    reset_launches(knn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        pipe = SlamPipeline(PRESETS["imu"](), cloud_capacity=IMU_CLOUD_CAPACITY, device="cuda")
+        for i, ((stamp, q, acc, w), xyz) in enumerate(zip(golden_town_imu(truth), scans)):
+            pipe.add_imu(stamp, orientation_wxyz=q, acceleration=acc, angular_velocity=w)
+            pipe.process_frame(float(i), xyz)
+        pipe.finish()
+        torch.cuda.synchronize()
+    finally:
+        clock.restore()
+    wall = time.perf_counter() - t0
+    launches = read_launches(knn)
+    est, odom = pipe.slam.trajectory(), pipe.odometry_trajectory
+    ref = [(float(i), T) for i, T in enumerate(truth)]
+    kf = {s for s, _ in est}
+    Rs = np.stack([T[:3, :3] for _, T in odom])
+    timer = clock.timer
+    row = dict(
+        phase="imu", preset="imu", frames=len(odom), cloud_capacity=IMU_CLOUD_CAPACITY, keyframes=len(est),
+        ate_opt_m=traj_io.ate_rmse(est, ref, align=True),
+        ate_odom_m=traj_io.ate_rmse([(s, T) for s, T in odom if s in kf], ref, align=True),
+        reference=dict(source="tools/cli_witness.py imu_feed (JAX package on the CPU)", ate_odom_m=IMU_JAX_ATE_ODOM_M,
+                       slack_m=IMU_ATE_SLACK_M),
+        det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
+        orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
+        seconds=wall, fps=len(odom) / wall, host_wall_s=dict(timer.totals), calls=dict(timer.counts),
+        launches=launches,
+    )
+    emit(row)
+    require(row["frames"] == IMU_FRAMES, f"imu ran {row['frames']} of {IMU_FRAMES} frames")
+    require(row["det_err"] < 1e-4 and row["orth_err"] < 1e-4, f"imu: rotation drift {row['det_err']}, {row['orth_err']}")
+    require(row["ate_odom_m"] <= IMU_JAX_ATE_ODOM_M + IMU_ATE_SLACK_M,
+            f"imu: odometry ATE {row['ate_odom_m']} above the JAX package's {IMU_JAX_ATE_ODOM_M} + {IMU_ATE_SLACK_M}")
+    require(all(launches[k] >= 1 for k in IMU_REQUIRED), f"imu path did not go through every kernel: {launches}")
+    return launches
+
+
 # -- the offline CLI and its dump -------------------------------------------------------
 
 CLI_PRESET = "outdoor"  # launch/hdl_graph_slam_400.launch
@@ -1242,13 +1641,13 @@ CLI_REQUIRED = ("nn1", "knn_select", "nn1_batched", "knn_select_batched", "radiu
 CLI_CHILD = (
     "import json, runpy, sys\n"
     "launches_path = sys.argv.pop(1)\n"
+    "import chip_smoke\n"
     "from hdl_graph_slam_tpu_torch.ops import knn\n"
     "try:\n"
     "    runpy.run_module('hdl_graph_slam_tpu_torch.run', run_name='__main__', alter_sys=True)\n"
     "finally:\n"
-    f"    counts = {{n: getattr(knn, n).launches for n in {LAUNCH_COUNTERS!r}}}\n"
     "    with open(launches_path, 'w') as f:\n"
-    "        json.dump(dict(counts=counts, per_k=knn.knn_select.launches_k), f)\n"
+    "        json.dump(dict(counts=chip_smoke.launch_counts(knn), per_k=knn.knn_select.launches_k), f)\n"
 )
 # a dump's poses are %.9g text: coordinates below 1000 m round by < 5e-7 m,
 # rotations rebuilt from 9-digit quaternions by < 1e-8
@@ -1302,24 +1701,32 @@ def cell_keys(cells: np.ndarray) -> np.ndarray:
     return (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
 
 
+def near_faces(xyz: np.ndarray, pose: np.ndarray, res: float) -> tuple:
+    """float64 cell coordinates u of float32 points under a float32 pose,
+    and per axis whether u lies within FACE_ULPS eps32 (of the magnitudes
+    of the transform's and the division's terms) of an integer: there the
+    float32 cell of the card and of the CPU may differ by rounding alone."""
+    p = np.asarray(xyz, dtype=np.float32).astype(np.float64)
+    pose = np.asarray(pose, dtype=np.float32).astype(np.float64)
+    R, t = pose[:3, :3], pose[:3, 3]
+    res32 = float(np.float32(res))
+    u = (p @ R.T + t) / res32
+    terms = (np.abs(p) @ np.abs(R).T + np.abs(t)) / res32 + np.abs(u)
+    return u, np.abs(u - np.round(u)) <= FACE_ULPS * EPS32 * terms
+
+
 def face_voxels(snapshots, res: float) -> tuple:
     """The voxels a map of ``snapshots`` may hold or not by float32
     rounding alone: for every point within FACE_ULPS eps32 of a voxel face
     (judged in float64 from the same float32 pose and point the map uses),
     the voxels on both sides of each such face. Returns (their keys, the
     number of such points, the number of points)."""
-    res32 = float(np.float32(res))
     keys, near_points, total = [], 0, 0
     for snap in snapshots:
-        p = snap.cloud.to_numpy().astype(np.float64)
-        pose = np.asarray(snap.pose, dtype=np.float32).astype(np.float64)
-        R, t = pose[:3, :3], pose[:3, 3]
-        u = (p @ R.T + t) / res32
-        terms = (np.abs(p) @ np.abs(R).T + np.abs(t)) / res32 + np.abs(u)
-        near = np.abs(u - np.round(u)) <= FACE_ULPS * EPS32 * terms
+        u, near = near_faces(snap.cloud.to_numpy(), snap.pose, res)
         rows = near.any(axis=1)
         near_points += int(rows.sum())
-        total += len(p)
+        total += len(u)
         u, near = u[rows], near[rows]
         lo = np.where(near, np.round(u) - 1, np.floor(u)).astype(np.int64)
         hi = np.where(near, np.round(u), np.floor(u)).astype(np.int64)
@@ -1560,12 +1967,14 @@ def persistence_phase(golden, cli) -> None:
     shutil.rmtree(cli["workdir"], ignore_errors=True)
 
 
-def kernels_line(kres, bres, fres, launches, peak_flops) -> list:
+def kernels_line(kres, bres, fres, nres, nimu, launches, peak_flops) -> list:
     """One entry per kernel entry point measured in this run. ``launches``
     maps each path (main, slam, slam_floor, host, host_statistical: the
     STATISTICAL run(), host_statistical_windowed: its run_windowed twin, cli:
     the CLI's child process) to its launch counts; an entry's ``launches`` is
-    that of its own main path, ``launches_cli`` the CLI's."""
+    that of its own main path, ``launches_cli`` the CLI's. The NDT kernels
+    carry ndt_main's shapes (``nres``) and, under ``imu_shape``, the imu
+    path's (``nimu``)."""
     from hdl_graph_slam_tpu_torch.utils.course import BENCH_FRAMES
 
     line = []
@@ -1635,6 +2044,47 @@ def kernels_line(kres, bres, fres, launches, peak_flops) -> list:
             dynamic_smem_bytes=r["launch"]["dynamic_smem_bytes"], stage_rows=r["launch"]["stage_rows"],
             registers_per_thread=r["launch"]["registers_per_thread"],
         ))
+    # the NDT kernels (csrc/ndt.cu) on the ndt_main path, knn_select k = 8 on ndt_kdtree's
+    for name, replaces in (
+            ("ndt_associate", "hdl_graph_slam_tpu/registration/ndt.py:101 (_gather_cells, XLA) with "
+                              "ops/voxel.py:433 neighbor_query_keys and :190 lookup_dense"),
+            ("ndt_derivatives", "hdl_graph_slam_tpu/registration/ndt.py:155 (score_derivatives over "
+                                "_gather_mean_icov :91, XLA)"),
+            ("ndt_trial_scores", "hdl_graph_slam_tpu/registration/ndt.py:137 (_score under the line search's "
+                                 "jax.vmap :399, XLA)")):
+        def shape(r):
+            return (f"n={r['n']} ({r['valid']} valid), K={r['K']}, {r['cells']} cells at {r['resolution']} m"
+                    + (f", L={NDT_TRIALS}" if name == "ndt_trial_scores" else ""))
+
+        r, q = nres[name], nimu[name]
+        line.append(dict(
+            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/ndt.cu", replaces=replaces,
+            launches=launches["ndt_main"][name], launches_imu=launches["imu"][name],
+            launches_per_frame=launches["ndt_main"][name] / BENCH_FRAMES,
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
+            host_ms=r["host_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None, shape=shape(r), found_pairs=r["found_pairs"], cells_read=r["cells_read"],
+            # the imu path's shapes (ndt_imu_kernels_phase)
+            imu_shape=dict(shape=shape(q), found_pairs=q["found_pairs"], cells_read=q["cells_read"],
+                           max_abs_err=q["max_abs_err"], ms=q["kernel_ms"], kernel_ms=q["kernel_ms"],
+                           device_ms=q["device_ms"], host_ms=q["host_ms"], plain_ms=q["plain_ms"],
+                           bound_ms=q["bound_ms"], bound_by=q["bound_by"], library_ms=None),
+        ))
+    r = nres["knn_select_k8"]
+    ops_s = r["valid_pairs"] * OPS_PER_PAIR / peak_flops
+    bytes_s = (r["n"] * 12 + r["m"] * 12 + r["n"] * 64) / HBM_BYTES_PER_S
+    line.append(dict(
+        name="knn_select_k8", route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu",
+        replaces="hdl_graph_slam_tpu/ops/knn.py:130 (knn_approx) at k=8, registration/ndt.py:131 (KDTREE)",
+        launches=launches["ndt_kdtree"]["knn_select_k8"], launches_by_path={p: v["knn_select_k8"] for p, v in
+                                                                            launches.items() if "knn_select_k8" in v},
+        max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
+        host_ms=r["host_ms"], plain_ms=r["plain_ms"],
+        bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
+        library_ms=None, shape=f"{r['n']}x{r['m']} (moved bench points x cell means), k=8", valid_pairs=r["valid_pairs"],
+        resident_warps_per_sm=r["launch"]["resident_warps_per_sm"], grid_blocks=r["launch"]["grid_blocks"],
+        dynamic_smem_bytes=r["launch"]["dynamic_smem_bytes"], registers_per_thread=r["launch"]["registers_per_thread"],
+    ))
     return line
 
 
@@ -1675,9 +2125,13 @@ def main(argv=None) -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    kernels.load("knn")
+    with ThreadPoolExecutor(len(kernels.SOURCES)) as ex:  # one nvcc per source, started together
+        list(ex.map(kernels.build, kernels.SOURCES))
+    for name in kernels.SOURCES:
+        kernels.load(name)
     build = dict(phase="build", seconds=time.perf_counter() - t0, nvcc_flags=kernels.NVCC_FLAGS,
-                 ptxas=kernels.build_info["knn"]["ptxas"])
+                 sources={name: dict(seconds=kernels.build_info[name]["seconds"], ptxas=kernels.build_info[name]["ptxas"])
+                          for name in kernels.SOURCES})
     emit(build)
 
     kres, launches = {}, {}
@@ -1760,6 +2214,9 @@ def main(argv=None) -> int:
             if case == "lattice_duplicates":  # exact ties: index for index
                 require(row["idx_identical"], f"{row['kernel']} {case}: indices differ from the plain twin")
 
+    # -- 3c. the NDT kernels against their plain twins --------------------------
+    nres = ndt_kernels_phase(knn, clouds, peak_flops)
+
     # -- 4. main path -------------------------------------------------------
     win, first, xyz, mask, stamps = main_path(scans)
     torch.cuda.synchronize()
@@ -1794,6 +2251,13 @@ def main(argv=None) -> int:
     if args.profile:
         emit(profile_frames(win, state0, xyz, mask, stamps, 16, dt / BENCH_FRAMES))
 
+    # -- 4b. the bench course through the NDT window (DIRECT7), then KDTREE ------
+    launches["ndt_main"], ndt_odoms = ndt_window_phase(knn, scans, "ndt_main", NDT_MAIN_REG, BENCH_FRAMES,
+                                                       ("ndt_associate", "ndt_derivatives", "ndt_trial_scores"))
+    launches["ndt_kdtree"], _ = ndt_window_phase(
+        knn, scans, "ndt_kdtree", dict(NDT_MAIN_REG, reg_nn_search_method="KDTREE"), NDT_KDTREE_FRAMES,
+        ("knn_select_k8", "ndt_derivatives", "ndt_trial_scores"), reference=ndt_odoms)
+
     # -- 5. golden_town course (host ray casting in a process pool) ----------
     golden = golden_course_phase()
 
@@ -1819,6 +2283,11 @@ def main(argv=None) -> int:
     # -- 10. the per-frame path: run() with the outdoor filters -------------------------
     launches.update(host_phase(knn, golden))
 
+    # -- 10b. the NDT kernels at the imu path's shapes, then the imu preset (NDT
+    # odometry) per frame with IMU messages ----------------------------------------------
+    nimu = ndt_imu_kernels_phase(golden, peak_flops)
+    launches["imu"] = imu_phase(knn, golden)
+
     # -- 11. the offline CLI on golden_town, then 12. its dump ----------------------------
     cli = cli_phase(golden)
     launches["cli"] = cli["launches"]
@@ -1826,7 +2295,7 @@ def main(argv=None) -> int:
 
     # -- 13. kernels line ------------------------------------------------------
     emit(dict(phase="done"))
-    emit({"kernels": kernels_line(kres, bres, fres, launches, peak_flops)})
+    emit({"kernels": kernels_line(kres, bres, fres, nres, nimu, launches, peak_flops)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

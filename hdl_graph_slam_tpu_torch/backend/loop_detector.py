@@ -13,7 +13,9 @@ Where the reference aligns candidates one at a time
 power of two) and aligned together: one knn_select_batched launch for their
 covariances, one nn1 launch per LM re-association for all their points
 against the shared target, one for their fitness scores, and one host copy
-of the results. This slice ports the GICP methods; the others raise.
+of the results. NDT candidates align in one batched ``ndt.align`` (each
+Newton step's association, derivatives and trial scores one launch for all
+of them). The GICP and NDT methods are ported; VGICP and ICP raise.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from ..core.cloud import PointCloud
 from ..core.config import LoopDetectorConfig
 from ..ops import knn
-from ..registration import gicp
+from ..registration import factory
 from ..registration.factory import Registration
 from .keyframe import KeyFrame
 
@@ -141,7 +143,7 @@ class LoopDetector:
         bounds its compiled variants) and run preprocessing, alignment and
         fitness for the whole batch; one host copy of the results."""
         c = self.cfg.registration
-        tgt_state = gicp.preprocess(target, k=c.reg_correspondence_randomness)
+        tgt_state = factory.make_target(c, target, self._registration.max_voxels)
         n_real = len(sources)
         pad_to = 1
         while pad_to < n_real:
@@ -158,15 +160,8 @@ class LoopDetector:
             mask[j, : s.capacity] = s.mask
         guesses_t = torch.from_numpy(np.stack(guesses)).to(dev, xyz.dtype)
 
-        transforms, convs, scores = batched_match(
-            tgt_state, target.valid_xyz(), xyz, mask, guesses_t,
-            k=c.reg_correspondence_randomness,
-            max_corr_dist=c.reg_max_correspondence_distance,
-            transformation_epsilon=c.reg_transformation_epsilon,
-            max_iterations=c.reg_maximum_iterations,
-            reassoc_displacement=c.reg_reassoc_displacement,
-            fitness_max_range=self.cfg.fitness_score_max_range,
-        )
+        transforms, convs, scores = batched_match(c, tgt_state, target.valid_xyz(), xyz, mask, guesses_t,
+                                                  fitness_max_range=self.cfg.fitness_score_max_range)
         # ONE host copy for the whole candidate batch
         out = torch.cat([transforms.reshape(len(sources), -1), convs[:, None].to(transforms.dtype),
                          scores[:, None].to(transforms.dtype)], dim=1).cpu().numpy()
@@ -175,18 +170,12 @@ class LoopDetector:
         return list(scores)[:n_real], list(transforms)[:n_real], list(convs)[:n_real]
 
 
-def batched_match(tgt_state, tgt_xyz_filled, xyz, mask, guesses, *, k, max_corr_dist, transformation_epsilon,
-                  max_iterations, reassoc_displacement, fitness_max_range):
-    """The JAX ``_batched_match`` for GICP: (preprocess + align + fitness)
-    over the candidate batch against one shared, preprocessed target.
-    Returns (transforms (B,4,4), converged (B,), fitness (B,)) on the device."""
-    src = gicp.preprocess(PointCloud(xyz=xyz, mask=mask), k=k)
-    res = gicp.align(
-        tgt_state, src, guesses,
-        max_corr_dist=max_corr_dist,
-        transformation_epsilon=transformation_epsilon,
-        max_iterations=max_iterations,
-        reassoc_displacement=reassoc_displacement,
-    )
+def batched_match(cfg, tgt_state, tgt_xyz_filled, xyz, mask, guesses, *, fitness_max_range):
+    """The JAX ``_batched_match``: (preprocess + align + fitness) over the
+    candidate batch against one shared, preprocessed target, with the
+    registration configuration ``cfg``. Returns (transforms (B,4,4),
+    converged (B,), fitness (B,)) on the device."""
+    src = factory.prepare_source(cfg, PointCloud(xyz=xyz, mask=mask))
+    res = factory.align(cfg, tgt_state, src, guesses)
     score = knn.fitness_score(tgt_xyz_filled, xyz, mask, res.transformation, max_range=fitness_max_range)
     return res.transformation, res.converged, score

@@ -14,8 +14,10 @@
 // (lax.approx_min_k) as GICP preprocessing calls it: the exact k nearest
 // targets of each query, ordered by (d, index), with the distance d + |q|^2
 // of the centred coordinates. It is instantiated for k = 20 (GICP's
-// covariances), 10 (the floor detector's normals) and 21 (the statistical
-// outlier filter's mean_k + 1); ops/knn.py::knn adds the exact rescore of
+// covariances), 10 (the floor detector's normals), 21 (the statistical
+// outlier filter's mean_k + 1) and 8 (NDT's KDTREE mode: the 8 nearest cell
+// means of each point, registration/ndt.py _gather_cells_kdtree, knn_approx
+// at k = 8 in the JAX package); ops/knn.py::knn adds the exact rescore of
 // the XLA ops/knn.py knn (top_k) on top of it.
 //
 // radius_count_kernel replaces the XLA ops/knn.py radius_count: for each
@@ -671,6 +673,7 @@ cudaError_t plan_nn1(int n, int m, int batch, Plan* p) {
 // built for.
 const void* knn_select_fn(int k) {
   switch (k) {
+    case 8: return (const void*)knn_select_kernel<8>;
     case 10: return (const void*)knn_select_kernel<10>;
     case 20: return (const void*)knn_select_kernel<20>;
     case 21: return (const void*)knn_select_kernel<21>;
@@ -696,7 +699,7 @@ int failed(cudaError_t e) {
   return (int)e;
 }
 
-// B problems of knn_select at k (one of 10, 20, 21), m >= k.
+// B problems of knn_select at k (one of 8, 10, 20, 21), m >= k.
 int launch_knn_select(const float* q, int batch, int n, const float* t, int m, int k, int* idx, float* dist,
                       void* stream) {
   const void* fn = knn_select_fn(k);
@@ -737,7 +740,7 @@ int hgs_nn1_batched(const float* q, int batch, int n, const float* t, int m, int
   return (int)cudaGetLastError();
 }
 
-// k is one of 10, 20, 21; m >= k.
+// k is one of 8, 10, 20, 21; m >= k.
 int hgs_knn_select(const float* q, int n, const float* t, int m, int k, int* idx, float* dist, void* stream) {
   return launch_knn_select(q, 1, n, t, m, k, idx, dist, stream);
 }

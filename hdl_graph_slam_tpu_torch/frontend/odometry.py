@@ -52,10 +52,10 @@ class OdometryStatus(NamedTuple):
 class ScanMatchingOdometry:
     """Per-frame odometry on ``device`` (None = cuda)."""
 
-    def __init__(self, cfg: Optional[OdometryConfig] = None, device=None):
+    def __init__(self, cfg: Optional[OdometryConfig] = None, device=None, max_voxels: int = 16384):
         self.cfg = cfg or OdometryConfig()
         self.device = resolve_device(device)
-        self.registration = Registration(self.cfg.registration)
+        self.registration = Registration(self.cfg.registration, max_voxels=max_voxels)
         self.keyframe: Optional[PointCloud] = None
         self.keyframe_pose = np.eye(4)
         self.keyframe_stamp: float = 0.0

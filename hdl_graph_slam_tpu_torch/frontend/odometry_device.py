@@ -10,11 +10,15 @@ One frame step keeps its state on the device:
   .cpp:210);
 - the convergence gate, transform thresholding and keyframe switch
   (:214-252) are tensor selects, so a frame reads nothing back to the host
-  outside the LM loop's per-iteration flags (registration/base.py). For GICP
-  the new target is the frame's own preprocessed source, selected
-  elementwise.
+  outside the registration loop's per-iteration flags
+  (registration/base.py, registration/ndt.py). For GICP the new target is
+  the frame's own preprocessed source, selected elementwise. NDT's target
+  (a sort, segment sums, 3x3 eigensolves and a dense-grid scatter) is
+  rebuilt only on switching frames, as the JAX lax.cond does: the frame
+  reads its switch flag to the host (one more sync a frame).
 
-This slice ports the FAST_GICP method; the others raise NotImplementedError.
+Ported: FAST_GICP / GICP and NDT / NDT_OMP; VGICP and ICP raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,44 +32,42 @@ from ..core import se3
 from ..core.cloud import PointCloud
 from ..core.config import OdometryConfig, RegistrationConfig
 from ..core.device import resolve_device
-from ..registration import gicp
+from ..registration import factory
 
 
 @dataclasses.dataclass(frozen=True)
 class OdomState:
-    tgt: gicp.GicpCloud  # current keyframe, preprocessed
+    tgt: object  # current keyframe, preprocessed (gicp.GicpCloud or ndt.NdtTarget)
     keyframe_pose: torch.Tensor  # (4,4)
     prev_trans: torch.Tensor  # (4,4) transform since keyframe
     keyframe_stamp: torch.Tensor  # ()
     prev_delta: torch.Tensor  # (4,4) last accepted frame-to-frame motion
 
 
-def make_method_fns(cfg: RegistrationConfig):
+def make_method_fns(cfg: RegistrationConfig, max_voxels: int = 8192):
     """(preprocess_src, make_target, align) for the configured method
-    (select_registration_method, src/hdl_graph_slam/registrations.cpp:22-124)."""
-    m = cfg.registration_method.upper()
-    if "VGICP" in m:
-        raise NotImplementedError("FAST_VGICP odometry is ROADMAP Queue 1 item 7 of the port")
-    if "GICP" in m:
-        prep = lambda cloud: gicp.preprocess(cloud, k=cfg.reg_correspondence_randomness)
-        make_tgt = lambda cloud, src: src
-        align = lambda tgt, src, guess: gicp.align(
-            tgt, src, guess,
-            max_corr_dist=cfg.reg_max_correspondence_distance,
-            transformation_epsilon=cfg.reg_transformation_epsilon,
-            max_iterations=cfg.reg_maximum_iterations,
-            reassoc_displacement=cfg.reg_reassoc_displacement,
-        )
-        return prep, make_tgt, align
-    if m == "ICP":
-        raise NotImplementedError("ICP odometry is ROADMAP Queue 1 item 9 of the port")
-    raise NotImplementedError(f"{cfg.registration_method} odometry is ROADMAP Queue 1 item 8 (NDT) of the port")
+    (select_registration_method, src/hdl_graph_slam/registrations.cpp:22-124,
+    through registration/factory.py); ``max_voxels`` is the NDT target's
+    cell capacity. Raises for the methods the port does not have yet."""
+    factory.method_of(cfg)
+    return (lambda cloud: factory.prepare_source(cfg, cloud),
+            lambda cloud, src: factory.make_target(cfg, cloud, max_voxels, source=src),
+            lambda tgt, src, guess: factory.align(cfg, tgt, src, guess))
 
 
 def _select(cond: torch.Tensor, a, b):
     """Elementwise select between two dataclasses of tensors."""
     return type(a)(**{f.name: torch.where(cond, getattr(a, f.name), getattr(b, f.name))
                       for f in dataclasses.fields(a)})
+
+
+def _next_target(switch: torch.Tensor, cloud: PointCloud, src, make_tgt, tgt):
+    """The keyframe target after this frame: selected elementwise on the
+    device where the factory allows it, else built only when the host reads
+    that the frame switched."""
+    if factory.elementwise_target(tgt):
+        return _select(switch, make_tgt(cloud, src), tgt)
+    return make_tgt(cloud, src) if bool(switch) else tgt
 
 
 def device_step_impl(
@@ -127,7 +129,7 @@ def device_step_impl(
     # start); the previous estimate is kept when the frame was rejected
     frame_delta = se3.compose(se3.inverse(state.prev_trans), trans)
     new_state = OdomState(
-        tgt=_select(switch, make_tgt(cloud, src), state.tgt),
+        tgt=_next_target(switch, cloud, src, make_tgt, state.tgt),
         keyframe_pose=torch.where(switch, odom, state.keyframe_pose),
         prev_trans=torch.where(switch, eye, torch.where(accepted, trans, state.prev_trans)),
         keyframe_stamp=torch.where(switch, stamp, state.keyframe_stamp),
@@ -149,14 +151,14 @@ def device_step_impl(
     return new_state, odom, status
 
 
-def initial_state(tgt: gicp.GicpCloud, stamp: float) -> OdomState:
+def initial_state(tgt, stamp: float, dtype: torch.dtype, device) -> OdomState:
     """The state of a bootstrap frame: its cloud is the keyframe target."""
-    eye = torch.eye(4, dtype=tgt.xyz.dtype, device=tgt.xyz.device)
+    eye = torch.eye(4, dtype=dtype, device=device)
     return OdomState(
         tgt=tgt,
         keyframe_pose=eye,
         prev_trans=eye.clone(),
-        keyframe_stamp=torch.tensor(stamp, dtype=tgt.xyz.dtype, device=tgt.xyz.device),
+        keyframe_stamp=torch.tensor(stamp, dtype=dtype, device=device),
         prev_delta=eye.clone(),
     )
 
@@ -177,12 +179,12 @@ def step_kwargs(cfg: OdometryConfig) -> dict:
 class DeviceOdometry:
     """Runs the device step one frame per call on ``device`` (None = cuda)."""
 
-    def __init__(self, cfg: Optional[OdometryConfig] = None, device=None):
+    def __init__(self, cfg: Optional[OdometryConfig] = None, device=None, max_voxels: int = 8192):
         self.cfg = cfg or OdometryConfig()
         self.device = resolve_device(device)
         self.state: Optional[OdomState] = None
         self.last_status = None
-        self._fns = make_method_fns(self.cfg.registration)
+        self._fns = make_method_fns(self.cfg.registration, max_voxels=max_voxels)
 
     def step(self, stamp: float, cloud: PointCloud, msf_delta=None, msf_source: str = "imu") -> torch.Tensor:
         """The odometry pose of this frame, on the device. ``msf_source``
@@ -191,7 +193,7 @@ class DeviceOdometry:
         dtype = cloud.xyz.dtype
         prep, make_tgt, align = self._fns
         if self.state is None:
-            self.state = initial_state(make_tgt(cloud, prep(cloud)), stamp)
+            self.state = initial_state(make_tgt(cloud, prep(cloud)), stamp, dtype, self.device)
             return torch.eye(4, dtype=dtype, device=self.device)
         have_guess = msf_delta is not None
         if msf_delta is None:

@@ -1,7 +1,7 @@
 """Windowed device-resident odometry: K frames per call
 (port of hdl_graph_slam_tpu/frontend/window.py).
 
-The whole frame step (prefilter + GICP odometry + gates + keyframe switch,
+The whole frame step (prefilter + odometry + gates + keyframe switch,
 scan_matching_odometry_nodelet.cpp:165-262) runs for a window of K staged
 scans. The JAX ``lax.scan`` becomes a frame loop over tensors that stay on
 the device; frame-to-frame sequencing (prev_trans as the next guess,
@@ -49,12 +49,13 @@ class OdometryWindow:
         prefilter_cfg: Optional[PrefilterConfig] = None,
         out_capacity: int = 8192,
         device=None,
+        max_voxels: int = 8192,
     ):
         self.cfg = cfg or OdometryConfig()
         self.prefilter_cfg = prefilter_cfg
         self.device = resolve_device(device)
         self._pf = make_prefilter_fn(prefilter_cfg, out_capacity) if prefilter_cfg is not None else None
-        self._fns = make_method_fns(self.cfg.registration)
+        self._fns = make_method_fns(self.cfg.registration, max_voxels=max_voxels)
 
     def _prefilter(self, cloud: PointCloud, ang_vel: torch.Tensor) -> PointCloud:
         if self._pf is None:
@@ -72,7 +73,7 @@ class OdometryWindow:
         if ang_vel is None:
             ang_vel = torch.zeros(3, dtype=dtype)
         cloud = self._prefilter(cloud, torch.as_tensor(ang_vel, dtype=dtype, device=self.device))
-        return initial_state(make_tgt(cloud, prep(cloud)), stamp)
+        return initial_state(make_tgt(cloud, prep(cloud)), stamp, dtype, self.device)
 
     def run(self, state: OdomState, xyz, mask, stamps, ang_vel=None):
         """Process a window. xyz (K, N, 3), mask (K, N), stamps (K,) — tensors

@@ -6,8 +6,9 @@ a plain C interface, at first use, under ``hdl_graph_slam_tpu_torch/_build/``
 ``ctypes``; every pointer and the stream are passed as ``c_void_p``.
 
 There is no fallback here: a missing ``nvcc`` or a failed build raises.
-Callers reach this module only for CUDA tensors (ops/knn.py); CPU tensors
-take the plain PyTorch versions beside the wrappers.
+Callers reach this module only for CUDA tensors (ops/knn.py,
+registration/ndt.py); CPU tensors take the plain PyTorch versions beside
+the wrappers.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+SOURCES = ("knn", "ndt")  # csrc/<name>.cu
+
 _lock = threading.Lock()
 _libs: dict = {}
 # name -> {"seconds": build time (0.0 when the cached library was reused),
@@ -44,12 +47,15 @@ def _nvcc() -> str:
     return found
 
 
-def _build(name: str) -> Path:
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the library of these sources is
+    already built; the library's path. Safe to run for different sources
+    at the same time (each writes its own file, renamed into place)."""
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = _BUILD / f"lib{name}_{digest}.so"
     if out.exists():
-        build_info[name] = {"seconds": 0.0, "ptxas": "cached"}
+        build_info.setdefault(name, {"seconds": 0.0, "ptxas": "cached"})
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -68,7 +74,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(name)))
+            lib = ctypes.CDLL(str(build(name)))
             _declare(name, lib)
             _libs[name] = lib
         return lib
@@ -89,6 +95,24 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.hgs_radius_count.restype = i
         lib.hgs_knn_launch_info_batched.argtypes = [i, i, i, i, i, p]
         lib.hgs_knn_launch_info_batched.restype = i
+    elif name == "ndt":
+        f = ctypes.c_float
+        lib.hgs_ndt_associate.argtypes = [p, p, p, i, i, i, p, f, p, i, p, p, i, p, p, p]
+        lib.hgs_ndt_associate.restype = i
+        lib.hgs_ndt_blocks.argtypes = [i]
+        lib.hgs_ndt_blocks.restype = i
+        lib.hgs_ndt_derivatives.argtypes = [p, p, p, i, i, i, p, p, p, f, f, p, p, p]
+        lib.hgs_ndt_derivatives.restype = i
+        lib.hgs_ndt_score.argtypes = [p, p, p, i, i, i, i, p, p, p, f, f, p, p, p]
+        lib.hgs_ndt_score.restype = i
+
+
+def stream(x) -> int:
+    """The current CUDA stream of tensor x's device, as the raw pointer the C
+    entry points take (without building a torch.cuda.Stream per launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def check(err: int, what: str) -> None:

@@ -6,8 +6,8 @@ plain PyTorch twin here:
 
 - ``nn1``: exact 1-NN, the function of the TPU kernel ``nn1_pallas`` and of
   the XLA ``nn1``. GICP association runs it at every re-association.
-- ``knn_select``: the exact k nearest neighbours (k = 10, 20 or 21 on the
-  card), the port's counterpart of ``knn_approx`` as GICP preprocessing
+- ``knn_select``: the exact k nearest neighbours (k = 8, 10, 20 or 21 on
+  the card), the port's counterpart of ``knn_approx`` as GICP preprocessing
   calls it (neighbour set only, with the expanded-form distances). Exact
   selection is a superset of the 0.85 recall ``knn_approx`` guarantees.
   ``knn`` (the XLA ``knn``: floor normals, the statistical outlier filter)
@@ -64,12 +64,6 @@ def _check(name: str, query: torch.Tensor, target: torch.Tensor) -> None:
         raise ValueError(f"{name}: empty query or target")
 
 
-def _stream(x: torch.Tensor) -> int:
-    """The current CUDA stream of x's device, as the raw pointer the C entry
-    points take (without building a torch.cuda.Stream object per launch)."""
-    return torch._C._cuda_getCurrentRawStream(x.device.index)
-
-
 def nn1_plain(query: torch.Tensor, target: torch.Tensor, chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch exact 1-NN: the same centring and expansion as the
     kernel, min plus masked-iota argmin (lowest index among ties), then the
@@ -102,7 +96,7 @@ def nn1(query: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.
     idx = torch.empty(n, dtype=torch.int32, device=query.device)
     dist2 = torch.empty(n, dtype=torch.float32, device=query.device)
     lib = kernels.load("knn")
-    stream = _stream(query)
+    stream = kernels.stream(query)
     kernels.check(lib.hgs_nn1(query.data_ptr(), n, target.data_ptr(), m,
                               idx.data_ptr(), dist2.data_ptr(), stream), "nn1")
     nn1.launches += 1
@@ -113,8 +107,9 @@ nn1.launches = 0
 
 
 # the k the kernel is compiled for: GICP's correspondence_randomness (20), the
-# floor normals (10) and the statistical outlier filter's mean_k + 1 (21)
-KNN_SELECT_KS = (10, 20, 21)
+# floor normals (10), the statistical outlier filter's mean_k + 1 (21) and
+# NDT's KDTREE cell candidates (8)
+KNN_SELECT_KS = (8, 10, 20, 21)
 
 
 def _lex_key(d: torch.Tensor) -> torch.Tensor:
@@ -170,7 +165,7 @@ def knn_select(query: torch.Tensor, target: torch.Tensor, k: int) -> Tuple[torch
     idx = torch.empty((n, k), dtype=torch.int32, device=query.device)
     dist = torch.empty((n, k), dtype=torch.float32, device=query.device)
     lib = kernels.load("knn")
-    stream = _stream(query)
+    stream = kernels.stream(query)
     kernels.check(lib.hgs_knn_select(query.data_ptr(), n, target.data_ptr(), m, k,
                                      idx.data_ptr(), dist.data_ptr(), stream), "knn_select")
     knn_select.launches += 1
@@ -220,7 +215,7 @@ def nn1_batched(query: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor
     dist2 = torch.empty((b, n), dtype=torch.float32, device=query.device)
     lib = kernels.load("knn")
     kernels.check(lib.hgs_nn1_batched(query.data_ptr(), b, n, target.data_ptr(), m,
-                                      idx.data_ptr(), dist2.data_ptr(), _stream(query)), "nn1_batched")
+                                      idx.data_ptr(), dist2.data_ptr(), kernels.stream(query)), "nn1_batched")
     nn1_batched.launches += 1
     return idx, dist2
 
@@ -255,7 +250,7 @@ def knn_select_batched(query: torch.Tensor, target: torch.Tensor, k: int) -> Tup
     dist = torch.empty((b, n, k), dtype=torch.float32, device=query.device)
     lib = kernels.load("knn")
     kernels.check(lib.hgs_knn_select_batched(query.data_ptr(), b, n, target.data_ptr(), m, k,
-                                             idx.data_ptr(), dist.data_ptr(), _stream(query)), "knn_select_batched")
+                                             idx.data_ptr(), dist.data_ptr(), kernels.stream(query)), "knn_select_batched")
     knn_select_batched.launches += 1
     return idx, dist
 
@@ -324,7 +319,7 @@ def radius_count(query: torch.Tensor, target: torch.Tensor, radius: float) -> to
     out = torch.empty(n, dtype=torch.int32, device=query.device)
     lib = kernels.load("knn")
     kernels.check(lib.hgs_radius_count(query.data_ptr(), n, target.data_ptr(), m, radius * radius, out.data_ptr(),
-                                       _stream(query)), "radius_count")
+                                       kernels.stream(query)), "radius_count")
     radius_count.launches += 1
     return out
 

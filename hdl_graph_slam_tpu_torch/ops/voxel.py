@@ -3,7 +3,10 @@ hdl_graph_slam_tpu/ops/voxel.py functions the prefilter and the map use).
 
 - pcl::VoxelGrid centroid downsampling (apps/prefiltering_nodelet.cpp:56-60);
 - pcl::octree occupied-voxel centres, the map's downsample
-  (map_cloud_generator.cpp:39-50).
+  (map_cloud_generator.cpp:39-50);
+- the Gaussian voxel statistics NDT needs (ndt_omp's VoxelGridCovariance,
+  registrations.cpp:105-119), with a dense cell -> row grid for the
+  DIRECT1 / DIRECT7 neighbour lookups and a sorted-key binary search.
 
 Voxel membership is an integer key per point; a sort groups points by voxel,
 segment boundaries give each point a dense segment id, and per-voxel sums
@@ -26,6 +29,8 @@ PyTorch differences from the JAX reference, handled here:
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -113,6 +118,23 @@ def _segment_keys(keys_s: torch.Tensor, seg_ids: torch.Tensor, max_segments: int
     return keys_s[torch.clamp(start, 0, n - 1)]
 
 
+def _segment_sums(payload: torch.Tensor, seg_ids: torch.Tensor, valid_s: torch.Tensor,
+                  max_segments: int) -> torch.Tensor:
+    """Per-segment sums of the sorted rows of ``payload`` (N, C) into
+    (max_segments, C), each segment summed in row order (deterministic on
+    either device). Rows no segment keeps (invalid rows, and ids past
+    max_segments: segment_sum's out-of-range policy, the lowest keys win)
+    come last in sorted order; each gets a one-row segment past the kept
+    ones, which is dropped, so no reduction walks a long run of them.
+    Segment ids stay sorted, so every segment's rows are contiguous."""
+    n = seg_ids.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=payload.device)
+    seg = torch.where(valid_s & (seg_ids < max_segments), seg_ids.to(torch.int64), max_segments + iota)
+    lengths = torch.zeros(max_segments + n, dtype=torch.int64, device=payload.device)
+    lengths.index_add_(0, seg, torch.ones_like(seg))
+    return torch.segment_reduce(payload, "sum", lengths=lengths, axis=0, unsafe=True)[:max_segments]
+
+
 def _downsample_from_keys(cloud: PointCloud, keys: torch.Tensor, invalid_key: int, max_voxels: int) -> PointCloud:
     """Shared centroid-downsample body: stable sort by key, fused segment sums."""
     keys_s, order = torch.sort(keys, stable=True)
@@ -121,20 +143,8 @@ def _downsample_from_keys(cloud: PointCloud, keys: torch.Tensor, invalid_key: in
     payload = [xyz_s, valid_s.to(xyz_s.dtype)[:, None]]
     if cloud.intensity is not None:
         payload.append(torch.where(valid_s, cloud.intensity[order], 0.0)[:, None])
-    payload = torch.cat(payload, dim=1)
-
     seg_ids, _ = _segment_ids_from_sorted_keys(keys_s)
-    # Rows no voxel keeps (padding, and ids past max_voxels: segment_sum's
-    # out-of-range policy, the lowest keys win) come last in sorted order;
-    # each gets a one-row segment past the kept ones, which is dropped, so
-    # no reduction walks a long run of them. Segment ids stay sorted, so
-    # every voxel's rows are contiguous.
-    n = keys_s.shape[0]
-    iota = torch.arange(n, dtype=torch.int64, device=payload.device)
-    seg = torch.where(valid_s & (seg_ids < max_voxels), seg_ids.to(torch.int64), max_voxels + iota)
-    lengths = torch.zeros(max_voxels + n, dtype=torch.int64, device=payload.device)
-    lengths.index_add_(0, seg, torch.ones_like(seg))
-    acc = torch.segment_reduce(payload, "sum", lengths=lengths, axis=0, unsafe=True)[:max_voxels]
+    acc = _segment_sums(torch.cat(payload, dim=1), seg_ids, valid_s, max_voxels)
     sums, counts = acc[:, :3], acc[:, 3]
     seg_keys = _segment_keys(keys_s, seg_ids, max_voxels)
 
@@ -176,3 +186,164 @@ def occupied_voxel_centers(cloud: PointCloud, resolution: float, max_voxels: int
     out_mask = (counts[:max_voxels] > 0) & (seg_keys != _INVALID_KEY)
     centers = key_to_center(torch.where(out_mask, seg_keys, 0), resolution).to(cloud.xyz.dtype)
     return PointCloud(xyz=torch.where(out_mask[:, None], centers, PAD_COORD), mask=out_mask)
+
+
+def sort_with_order(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sorted_keys, permutation): a stable ascending sort, equal keys in row
+    order, as the JAX ``lax.sort`` with an int32 iota payload. The
+    permutation is int64, PyTorch's index type."""
+    keys_s, order = torch.sort(keys, stable=True)
+    return keys_s, order
+
+
+def searchsorted32(sorted_keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Binary search, side='left', int32 positions (jnp.searchsorted)."""
+    return torch.searchsorted(sorted_keys, queries, side="left", out_int32=True)
+
+
+# -- dense O(1) cell -> row grid -------------------------------------------------
+#
+# ndt_omp's DIRECT modes index the voxel grid directly. The table's rows are
+# scattered once into a flat (G^3,) int32 grid anchored at the target's
+# minimum occupied cell; every lookup is then one read. Cells outside the
+# G^3 grid are not found, as cells outside the 1024^3 local grid are.
+
+DENSE_GRID_SIZE = 256  # 256^3 int32 = 64 MB; covers 2 * far_thresh at res 1.0
+
+# physical span the dense grid must cover per axis: the target cloud's
+# extent, bounded by 2 * distance_far_thresh (the largest preset far
+# threshold is 100 m, kitti)
+DENSE_GRID_SPAN_M = 256.0
+
+
+def dense_grid_size_for(resolution: float, span_m: float = DENSE_GRID_SPAN_M) -> int:
+    """Grid size covering ``span_m`` meters per axis at ``resolution``: a
+    power of two in [64, DENSE_GRID_SIZE]. Below resolution 1.0 the cap
+    wins and only 256 * resolution meters are covered (cells beyond are not
+    found)."""
+    need = math.ceil(span_m / float(resolution))
+    g = 64
+    while g < need and g < DENSE_GRID_SIZE:
+        g *= 2
+    return g
+
+
+def _split_key(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return keys >> (2 * _LOCAL_BITS), (keys >> _LOCAL_BITS) & (_LOCAL_RANGE - 1), keys & (_LOCAL_RANGE - 1)
+
+
+def build_dense_grid(keys: torch.Tensor, mask: torch.Tensor, grid_size: int = DENSE_GRID_SIZE) -> torch.Tensor:
+    """Scatter table rows into a flat (G^3,) int32 grid; -1 = empty cell.
+
+    ``keys`` are the packed int32 local keys of a voxel table; rows whose
+    cell lies outside the G^3 grid go to one extra slot that is dropped
+    (``.at[].set(mode="drop")``). The kept keys are unique, so the scatter
+    is deterministic."""
+    G = grid_size
+    i, j, k = _split_key(keys)
+    in_grid = mask & (keys != _LOCAL_INVALID) & (i < G) & (j < G) & (k < G)
+    flat = torch.where(in_grid, (i * G + j) * G + k, G * G * G)
+    grid = torch.full((G * G * G + 1,), -1, dtype=torch.int32, device=keys.device)
+    grid[flat.long()] = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    return grid[: G * G * G]
+
+
+def grid_dim(grid: torch.Tensor) -> int:
+    """Per-axis cell count of a flat (G^3,) dense grid."""
+    return round(grid.shape[0] ** (1.0 / 3.0))
+
+
+def lookup_dense(grid: torch.Tensor, query_keys: torch.Tensor,
+                 grid_size: int = DENSE_GRID_SIZE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, found) per int32 local query key: one read of the grid. A query
+    outside the grid reads cell 0 (its row is returned, not found), as the
+    JAX function does."""
+    G = grid_size
+    i, j, k = _split_key(query_keys)
+    in_grid = (query_keys != _LOCAL_INVALID) & (i < G) & (j < G) & (k < G)
+    idx = grid[torch.where(in_grid, (i * G + j) * G + k, 0).long()]
+    return torch.clamp(idx, min=0), in_grid & (idx >= 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianVoxels:
+    """Per-voxel Gaussian statistics (mean, covariance, count) as a table
+    sorted by int32 local key (ndt_omp's VoxelGridCovariance). Rows failing
+    min_points carry the sentinel key and sort last."""
+
+    keys: torch.Tensor  # (V,) int32 local keys, sorted, invalid = sentinel
+    means: torch.Tensor  # (V, 3), PAD_COORD where masked
+    covs: torch.Tensor  # (V, 3, 3)
+    counts: torch.Tensor  # (V,) float
+    mask: torch.Tensor  # (V,) bool
+    resolution: float  # cell size in meters (used as float32)
+    origin: torch.Tensor  # (3,) int32 local-grid anchor (min occupied cell)
+
+
+def build_gaussian_voxels(cloud: PointCloud, resolution: float, max_voxels: int, min_points: int = 6,
+                          regularize: str = "ndt") -> GaussianVoxels:
+    """Per-voxel mean and covariance of ``cloud`` in a table of ``max_voxels``
+    rows (the lowest keys win on overflow). Voxels with fewer than
+    ``min_points`` points are masked (VoxelGridCovariance's
+    min_points_per_voxel_). ``regularize="ndt"`` floors each covariance's
+    eigenvalues at 1e-2 of the largest (PCL NDT, ops/eig3.py)."""
+    origin = local_origin(cloud.xyz, cloud.mask, resolution)
+    keys = pack_local_keys(local_cells(cloud.xyz, resolution), origin, cloud.mask)
+    keys_s, order = sort_with_order(keys)
+    valid_s = keys_s != _LOCAL_INVALID
+    xyz_s = torch.where(valid_s[:, None], cloud.xyz[order], 0.0)
+    seg_ids, _ = _segment_ids_from_sorted_keys(keys_s)
+    outer = xyz_s[:, :, None] * xyz_s[:, None, :]
+    acc = _segment_sums(torch.cat([xyz_s, valid_s.to(xyz_s.dtype)[:, None], outer.reshape(-1, 9)], dim=1),
+                        seg_ids, valid_s, max_voxels)
+    sums, counts, sq_sums = acc[:, :3], acc[:, 3], acc[:, 4:]
+    seg_keys = _segment_keys(keys_s, seg_ids, max_voxels)
+
+    cnt = torch.clamp(counts, min=1.0)
+    means = sums / cnt[:, None]
+    covs = sq_sums.reshape(-1, 3, 3) / cnt[:, None, None] - means[:, :, None] * means[:, None, :]
+    vmask = (counts >= min_points) & (seg_keys != _LOCAL_INVALID)
+    if regularize == "ndt":
+        from .eig3 import floor_regularize
+
+        covs = floor_regularize(covs + 1e-9 * torch.eye(3, dtype=covs.dtype, device=covs.device))
+    means = torch.where(vmask[:, None], means, PAD_COORD)
+    # Masked cells carry the sentinel key in the middle of the ascending
+    # sequence: re-sort, or the binary search misses every key after the
+    # first masked cell.
+    final_keys, order2 = sort_with_order(torch.where(vmask, seg_keys, _LOCAL_INVALID))
+    return GaussianVoxels(keys=final_keys, means=means[order2], covs=covs[order2], counts=counts[order2],
+                          mask=vmask[order2], resolution=float(resolution), origin=origin)
+
+
+def lookup_voxels(voxels: GaussianVoxels, query_keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Binary search of int32 local query keys in the sorted key table:
+    (row, found) per query; a miss returns the clipped search position."""
+    idx = torch.clamp(searchsorted32(voxels.keys, query_keys), 0, voxels.keys.shape[0] - 1)
+    found = (voxels.keys[idx] == query_keys) & voxels.mask[idx] & (query_keys != _LOCAL_INVALID)
+    return idx, found
+
+
+def query_keys_for(voxels: GaussianVoxels, xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Local keys of query points in a voxel table's grid (for lookup_voxels)."""
+    return pack_local_keys(local_cells(xyz, voxels.resolution), voxels.origin, mask)
+
+
+def neighbor_offsets(method: str, device=None) -> torch.Tensor:
+    """DIRECT1 = the containing cell; DIRECT7 = it and its 6 face neighbours
+    (ndt_omp NeighborSearchMethod, registrations.cpp:113-119), as (K, 3)
+    int32 cell offsets. The order is the CUDA kernel's too (csrc/ndt.cu)."""
+    if method.upper() == "DIRECT1":
+        off = [(0, 0, 0)]
+    else:  # DIRECT7 (KDTREE has its own path, registration/ndt.py)
+        off = [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)]
+    return torch.tensor(off, dtype=torch.int32, device=device)
+
+
+def neighbor_query_keys(voxels: GaussianVoxels, xyz: torch.Tensor, mask: torch.Tensor,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """Local keys of each query point's neighbour cells: (..., N, 3),
+    (K, 3) -> (..., N, K). Offsets apply to integer cell coordinates, so an
+    out-of-grid neighbour packs to the sentinel, never wraps around."""
+    nijk = local_cells(xyz, voxels.resolution)[..., None, :] + offsets
+    return pack_local_keys(nijk, voxels.origin, mask[..., None])

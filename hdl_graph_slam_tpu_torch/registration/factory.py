@@ -4,9 +4,10 @@
 Equivalent of hdl_graph_slam::select_registration_method
 (src/hdl_graph_slam/registrations.cpp:22-124) with the pcl::Registration-style
 surface the backend uses (set a target once, align sources with a guess,
-read the fitness score). This slice ports FAST_GICP / GICP / GICP_OMP
-(registration.gicp); VGICP, NDT and ICP raise NotImplementedError naming
-their ROADMAP item.
+read the fitness score). Ported: FAST_GICP / GICP / GICP_OMP
+(registration.gicp) and NDT / NDT_OMP with KDTREE, DIRECT1 or DIRECT7
+(registration.ndt); VGICP and ICP raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 from ..core.cloud import PointCloud
 from ..core.config import RegistrationConfig
 from ..ops import knn
-from . import gicp
+from ..ops import voxel as voxelops
+from . import gicp, ndt
 from .base import AlignResult
 
 
@@ -32,7 +34,50 @@ def method_of(cfg: RegistrationConfig) -> str:
         return "GICP"
     if m == "ICP":
         raise NotImplementedError(f"{cfg.registration_method}: ICP is ROADMAP Queue 1 item 9 of the port")
-    raise NotImplementedError(f"{cfg.registration_method}: NDT is ROADMAP Queue 1 item 8 of the port")
+    return "NDT"
+
+
+def dense_grid_size(cfg: RegistrationConfig) -> int:
+    """The dense voxel grid of the configured resolution and span."""
+    return voxelops.dense_grid_size_for(cfg.reg_resolution, span_m=cfg.reg_dense_span_m or voxelops.DENSE_GRID_SPAN_M)
+
+
+def prepare_source(cfg: RegistrationConfig, cloud: PointCloud):
+    """A source cloud (or a leading batch of them) as the configured method
+    aligns it: GICP's per-point covariances; NDT takes the cloud as it is."""
+    if method_of(cfg) == "NDT":
+        return cloud
+    return gicp.preprocess(cloud, k=cfg.reg_correspondence_randomness)
+
+
+def make_target(cfg: RegistrationConfig, cloud: PointCloud, max_voxels: int = 8192, source=None):
+    """The preprocessed target of ``cloud`` for the configured method. A GICP
+    target is the cloud's preprocessed source, so ``source``
+    (prepare_source of the same cloud), when given, is returned as it is."""
+    if method_of(cfg) == "NDT":
+        return ndt.preprocess_target(cloud, cfg.reg_resolution, max_voxels=max_voxels,
+                                     grid_size=dense_grid_size(cfg))
+    return source if source is not None else prepare_source(cfg, cloud)
+
+
+def elementwise_target(tgt) -> bool:
+    """Whether a keyframe switch may select the next target elementwise on
+    the device, with the frame's target made on every frame: a GICP target
+    is the frame's own prepared source and costs nothing more. Any other
+    target is a build of its own, made only on switching frames."""
+    return isinstance(tgt, gicp.GicpCloud)
+
+
+def align(cfg: RegistrationConfig, tgt, source, guess: torch.Tensor) -> AlignResult:
+    """Align a prepared source (N rows with a (4, 4) guess, or a leading
+    batch with (B, 4, 4)) onto a target with the configuration's options."""
+    if method_of(cfg) == "NDT":
+        return ndt.align(tgt, source, guess, transformation_epsilon=cfg.reg_transformation_epsilon,
+                         max_iterations=cfg.reg_maximum_iterations, nn_search_method=cfg.reg_nn_search_method,
+                         reassoc_displacement=cfg.reg_reassoc_displacement)
+    return gicp.align(tgt, source, guess, max_corr_dist=cfg.reg_max_correspondence_distance,
+                      transformation_epsilon=cfg.reg_transformation_epsilon,
+                      max_iterations=cfg.reg_maximum_iterations, reassoc_displacement=cfg.reg_reassoc_displacement)
 
 
 class Registration:
@@ -41,32 +86,24 @@ class Registration:
 
     def __init__(self, cfg: Optional[RegistrationConfig] = None, max_voxels: int = 8192):
         self.cfg = cfg or RegistrationConfig()
-        self.max_voxels = max_voxels  # the target voxel capacity of VGICP and NDT (items 7-8); GICP has none
+        self.max_voxels = max_voxels  # the target voxel capacity of VGICP and NDT; GICP has none
         self.method = method_of(self.cfg)
         self._target_cloud: Optional[PointCloud] = None
-        self._target_state: Optional[gicp.GicpCloud] = None
+        self._target_state = None
         self._last_result: Optional[AlignResult] = None
         self._last_source: Optional[PointCloud] = None
 
     def set_target(self, cloud: PointCloud) -> None:
         self._target_cloud = cloud
-        self._target_state = gicp.preprocess(cloud, k=self.cfg.reg_correspondence_randomness)
+        self._target_state = make_target(self.cfg, cloud, self.max_voxels)
 
     def align(self, source: PointCloud, guess=None) -> AlignResult:
         """Preprocess ``source`` and align it onto the target from ``guess``."""
         if self._target_state is None:
             raise RuntimeError("set_target() must be called before align()")
-        c = self.cfg
         dtype, dev = source.xyz.dtype, source.xyz.device
         guess = torch.eye(4, dtype=dtype, device=dev) if guess is None else torch.as_tensor(guess, dtype=dtype).to(dev)
-        src = gicp.preprocess(source, k=c.reg_correspondence_randomness)
-        result = gicp.align(
-            self._target_state, src, guess,
-            max_corr_dist=c.reg_max_correspondence_distance,
-            transformation_epsilon=c.reg_transformation_epsilon,
-            max_iterations=c.reg_maximum_iterations,
-            reassoc_displacement=c.reg_reassoc_displacement,
-        )
+        result = align(self.cfg, self._target_state, prepare_source(self.cfg, source), guess)
         self._last_result = result
         self._last_source = source
         return result
@@ -80,5 +117,5 @@ class Registration:
         return float(score)
 
 
-def select_registration_method(cfg: RegistrationConfig) -> Registration:
-    return Registration(cfg)
+def select_registration_method(cfg: RegistrationConfig, max_voxels: int = 8192) -> Registration:
+    return Registration(cfg, max_voxels=max_voxels)

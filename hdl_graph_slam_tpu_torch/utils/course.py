@@ -116,3 +116,46 @@ def golden_town_outdoor_config():
     cfg.prefilter.radius_radius = 0.8
     cfg.prefilter.radius_min_neighbors = 2
     return cfg
+
+
+GRAVITY = 9.80665
+
+
+def _quat_wxyz(R: np.ndarray) -> np.ndarray:
+    """Unit quaternion (w, x, y, z), w >= 0, of a rotation matrix."""
+    w = 0.5 * np.sqrt(max(0.0, 1.0 + np.trace(R)))
+    if w > 1e-3:
+        v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]]) / (4.0 * w)
+        return np.concatenate([[w], v])
+    i = int(np.argmax(np.diag(R)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(max(0.0, 1.0 + R[i, i] - R[j, j] - R[k, k])) * 2.0
+    q = np.zeros(4)
+    q[0] = (R[k, j] - R[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (R[j, i] + R[i, j]) / s
+    q[1 + k] = (R[k, i] + R[i, k]) / s
+    return q if q[0] >= 0 else -q
+
+
+def _so3_log(R: np.ndarray) -> np.ndarray:
+    """Rotation vector of a rotation matrix (angles below pi)."""
+    c = np.clip(0.5 * (np.trace(R) - 1.0), -1.0, 1.0)
+    theta = np.arccos(c)
+    v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return 0.5 * v if theta < 1e-8 else theta / (2.0 * np.sin(theta)) * v
+
+
+def golden_town_imu(truth, lead: float = 0.05) -> list:
+    """IMU messages for golden_town built from its truth sensor poses, one
+    per frame, frame i's stamped float(i) - lead: (stamp, orientation
+    (w, x, y, z) of R_i, the specific force R_i^T (0, 0, g) of a sensor
+    at rest under gravity, the body angular velocity log(R_{i-1}^T R_i) /
+    1 s, the frames being 1 s apart (zero for frame 0)). Feed each with
+    SlamPipeline.add_imu before its frame."""
+    out = []
+    for i, T in enumerate(truth):
+        R = np.asarray(T, dtype=np.float64)[:3, :3]
+        w = _so3_log(np.asarray(truth[i - 1], dtype=np.float64)[:3, :3].T @ R) if i else np.zeros(3)
+        out.append((float(i) - lead, _quat_wxyz(R), R.T @ np.array([0.0, 0.0, GRAVITY]), w))
+    return out

@@ -285,10 +285,23 @@ def test_backend_course_matches_jax():
 
 @pytest.mark.parametrize("method,item", [("FAST_VGICP", "7"), ("NDT_OMP", "8"), ("ICP", "9")])
 def test_unported_registration_methods_raise(method, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        factory.select_registration_method(RegistrationConfig(registration_method=method))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        LoopDetector(port_loop_cfg(method))
+    """VGICP (item 7) and ICP (item 9) still raise. NDT (item 8) is ported:
+    the factory and the loop detector construct it, and the loop detector
+    matches the line course's candidates with it (one batched NDT align)."""
+    if method != "NDT_OMP":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            factory.select_registration_method(RegistrationConfig(registration_method=method))
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            LoopDetector(port_loop_cfg(method))
+        return
+    assert factory.select_registration_method(RegistrationConfig(registration_method=method)).method == "NDT"
+    det = LoopDetector(port_loop_cfg(method, reg_resolution=1.0))
+    _, new, est, kfs, new_p = line_course()
+    cand = det.find_candidates(kfs, new_p, est)
+    assert cand
+    scores, transforms, convs = det._match_batched([kfs[i].cloud for i in cand], new_p.cloud,
+                                                   guesses_for(est, new.node_id, [kfs[i].node_id for i in cand]))
+    assert len(scores) == len(cand) and np.isfinite(np.stack(transforms)).all() and any(convs)
 
 
 def test_unported_backend_branches_raise(tmp_path):

@@ -204,6 +204,106 @@ def test_launch_counts_read_per_kernel_entry():
     assert set(chip_smoke.read_launches(knn).values()) == {0}
 
 
+def test_launch_counts_read_the_ndt_wrappers():
+    """The NDT wrappers' counters appear as ndt_<name>, knn_select's k = 8
+    as knn_select_k8; reset_launches zeroes them too."""
+    from hdl_graph_slam_tpu_torch.registration import ndt
+
+    ndt.associate.launches, ndt.derivatives.launches, ndt.trial_scores.launches = 2, 3, 4
+    knn.knn_select.launches_k = dict.fromkeys(knn.KNN_SELECT_KS, 0) | {8: 5}
+    got = chip_smoke.read_launches(knn)
+    assert (got["ndt_associate"], got["ndt_derivatives"], got["ndt_trial_scores"], got["knn_select_k8"]) == (2, 3, 4, 5)
+    chip_smoke.reset_launches(knn)
+    assert set(chip_smoke.read_launches(knn).values()) == {0}
+
+
+def test_ndt_bounds_take_the_larger_of_bytes_and_operations():
+    """The association moves bytes only: the mask of every row, the points
+    of the valid rows, its grid reads and its (n, K) outputs. The
+    derivatives read the found flags of valid rows, the indices of found
+    pairs and each named cell's row once, and are bounded by bytes at the
+    H100's rates (by operations at half its fp32 peak); the trial scores read their inputs once
+    for all trials, only their operations scale with them."""
+    peak, hbm = 66.9e12, chip_smoke.HBM_BYTES_PER_S
+    w = dict(n=8192, valid=6744, K=7, grid_reads=47000, found_pairs=24503, cells_read=600)
+    ms, by = chip_smoke.ndt_bounds("ndt_associate", w, peak)
+    assert by == "bytes" and ms == pytest.approx(1e3 * (8192 + 12 * 6744 + 64 + 4 * 47000 + 5 * 8192 * 7) / hbm)
+    ms, by = chip_smoke.ndt_bounds("ndt_derivatives", w, peak)
+    reads = 8192 + 12 * 6744 + 6744 * 7 + 4 * 24503 + 48 * 600
+    assert by == "bytes" and ms == pytest.approx(1e3 * (reads + 64 + 43 * 4) / hbm)
+    # a found pair's 4-byte index outweighs its operations at these rates
+    many = dict(w, found_pairs=500000)
+    ops = 500000 * chip_smoke.NDT_DERIV_OPS_PER_PAIR + 6744 * chip_smoke.NDT_DERIV_OPS_PER_POINT
+    assert chip_smoke.ndt_bounds("ndt_derivatives", many, peak)[1] == "bytes"
+    assert chip_smoke.ndt_bounds("ndt_derivatives", many, peak / 2)[0] == pytest.approx(1e3 * ops / (peak / 2))
+    assert chip_smoke.ndt_bounds("ndt_derivatives", many, peak / 2)[1] == "operations"
+    one = chip_smoke.ndt_bounds("ndt_trial_scores", w, peak, trials=1)
+    assert one[1] == "bytes" and one[0] == pytest.approx(1e3 * (reads + 64 + 4) / hbm)
+    ten = chip_smoke.ndt_bounds("ndt_trial_scores", w, peak, trials=10)
+    ops = 10 * (24503 * chip_smoke.NDT_SCORE_OPS_PER_PAIR + 6744 * chip_smoke.NDT_SCORE_OPS_PER_POINT)
+    assert ten[1] == "operations" and ten[0] == pytest.approx(1e3 * ops / peak)
+
+
+def test_ndt_work_counts_what_the_data_needs():
+    """ndt_work on the plain association: valid rows, found pairs of valid
+    rows and the distinct cells they name as counted directly; the grid
+    reads those of valid rows' DIRECT7 neighbour cells inside the dense
+    grid (counted here in numpy). A padded row and a point moved past the
+    grid add no grid read."""
+    from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
+    from hdl_graph_slam_tpu_torch.registration import ndt
+
+    rng = np.random.default_rng(3)
+    tgt_pts = rng.uniform(0.0, 12.0, (600, 3)).astype(np.float32)
+    tgt = ndt.preprocess_target(cloudlib.from_numpy(tgt_pts, capacity=1024, device="cpu"), 2.0, max_voxels=256,
+                                grid_size=8)
+    xyz = np.concatenate([tgt_pts[:200] + rng.normal(0.0, 0.05, (200, 3)).astype(np.float32),
+                          [[200.0, 5.0, 5.0]], [[1.0e6, 1.0e6, 1.0e6]]]).astype(np.float32)
+    mask = np.arange(len(xyz)) < len(xyz) - 1
+    xyz_t, mask_t, T = torch.from_numpy(xyz)[None], torch.from_numpy(mask)[None], torch.eye(4)[None]
+    idx, found = ndt.associate(tgt, xyz_t, mask_t, T, "DIRECT7")
+    w = chip_smoke.ndt_work(tgt, xyz_t, mask_t, T, idx, found, "DIRECT7")
+    pairs = (found & mask_t[..., None])[0]
+    offsets = ndt.voxelops.neighbor_offsets("DIRECT7").numpy()
+    cells = np.floor(xyz[mask] / np.float32(2.0)).astype(np.int64) - tgt.voxels.origin.numpy()
+    nb = cells[:, None, :] + offsets[None]
+    assert w == dict(n=len(xyz), valid=int(mask.sum()), K=7, grid_reads=int(((nb >= 0) & (nb < 8)).all(-1).sum()),
+                     found_pairs=int(pairs.sum()), cells_read=len(np.unique(idx[0][pairs].numpy())))
+    assert 0 < w["found_pairs"] <= w["grid_reads"] < 7 * w["valid"]
+
+
+def test_near_faces_flags_points_on_cell_faces():
+    """A point whose transformed coordinate sits on a multiple of the
+    resolution is near a face on that axis; one half a cell off is not."""
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.25, 0.0, 0.0]
+    xyz = np.array([[3.75, 1.0, 1.0], [4.75, 1.0, 1.0], [1.0, 1.0, 1.0]], np.float32)
+    u, near = chip_smoke.near_faces(xyz, pose, 2.0)
+    np.testing.assert_allclose(u[:, 0], [2.0, 2.5, 0.625])
+    assert near[:, 0].tolist() == [True, False, False] and not near[:, 1:].any()
+
+
+def test_golden_town_imu_messages_follow_the_truth():
+    """golden_town_imu: stamps i - 0.05, w >= 0 quaternions of each truth
+    rotation, the gravity specific force R^T (0, 0, g), and body rates
+    whose 1 s exponential carries each rotation to the next."""
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.frontend.imu_prediction import so3_exp
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    truth = course.golden_town_sensor_poses()[:60]
+    msgs = course.golden_town_imu(truth)
+    assert [m[0] for m in msgs] == [i - 0.05 for i in range(60)]
+    for i, (_, q, acc, w) in enumerate(msgs):
+        R = truth[i][:3, :3]
+        np.testing.assert_allclose(se3.mat_from_quat(torch.from_numpy(q)).numpy(), R, atol=1e-12)
+        assert q[0] >= 0.0
+        np.testing.assert_allclose(acc, R.T @ [0.0, 0.0, course.GRAVITY], atol=1e-12)
+        if i:
+            np.testing.assert_allclose(truth[i - 1][:3, :3] @ so3_exp(w), R, atol=1e-9)
+    assert max(np.linalg.norm(m[3]) for m in msgs) > 0.01  # the course turns
+
+
 def test_floor_band_is_the_detectors_clip():
     """floor_band keeps z strictly inside (-h - range, -h + range), as the
     floor detector's two plane clips do."""

@@ -123,6 +123,27 @@ def test_cli_trajectory_is_the_pipelines_bit_for_bit(cli_run):
         np.testing.assert_array_equal(np.stack([T for _, T in mine]), np.stack([T for _, T in ref]))
 
 
+def test_cli_imu_preset_matches_the_jax_cli(bag, tmp_path):
+    """``--preset imu`` (NDT_OMP odometry at 10 m cells, deskewing, GICP
+    loops) through the port's CLI on the CPU and the JAX package's CLI on the
+    same bag: the same keyframe and frame stamps, and every optimized and
+    odometry pose within 1e-4 (float32 rounding of the chained aligns;
+    measured 2e-6, the TUM files' 6-digit text)."""
+    from hdl_graph_slam_tpu import run as jcli
+
+    outs = {}
+    for name, main, extra in (("port", cli.main, ["--device", "cpu"]), ("jax", jcli.main, [])):
+        out = {k: str(tmp_path / f"{name}_{k}") for k in ("traj.txt", "odom.txt")}
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["--bag", bag, "--preset", "imu", "--cloud-capacity", str(CAPACITY), "--out-traj",
+                         out["traj.txt"], "--out-odom-traj", out["odom.txt"]] + extra) == 0
+        outs[name] = {k: trajectory.load_tum(v) for k, v in out.items()}
+    for k in ("traj.txt", "odom.txt"):
+        mine, ref = outs["port"][k], outs["jax"][k]
+        assert [s for s, _ in mine] == [s for s, _ in ref] and len(mine) >= (2 if k == "traj.txt" else 8)
+        np.testing.assert_allclose(np.stack([T for _, T in mine]), np.stack([T for _, T in ref]), atol=1e-4)
+
+
 def test_cli_resumes_from_its_dump(bag, cli_run, tmp_path):
     """A second run that loads the dump and reads 3 more frames grows the
     graph and dumps more keyframes."""
@@ -153,7 +174,7 @@ def test_cli_kitti_ref_poses(world, tmp_path):
     assert lines[1]["ate_rmse_m"] < 0.05
 
 
-def test_cli_defaults_to_cuda_and_never_falls_back(bag):
+def test_cli_defaults_to_cuda_and_never_falls_back(bag, tmp_path):
     """Without --device the CLI runs on cuda; without a GPU it raises, in
     process and as ``python -m``, before reading a frame."""
     if torch.cuda.is_available():
@@ -164,8 +185,12 @@ def test_cli_defaults_to_cuda_and_never_falls_back(bag):
     out = subprocess.run([sys.executable, "-m", "hdl_graph_slam_tpu_torch.run", "--bag", bag],
                          capture_output=True, text=True, cwd=REPO, env=dict(os.environ, PYTHONPATH=""), timeout=120)
     assert out.returncode != 0 and "CUDA" in out.stderr and not out.stdout
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["--bag", bag, "--preset", "imu", "--device", "cpu"])
+    # the imu preset (NDT odometry) runs when asked for the CPU and writes its outputs
+    traj = tmp_path / "imu_traj.txt"
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["--bag", bag, "--preset", "imu", "--device", "cpu", "--max-frames", "3",
+                         "--cloud-capacity", str(CAPACITY), "--out-traj", str(traj)]) == 0
+    assert len(trajectory.load_tum(str(traj))) >= 1
 
 
 def test_process_frame_spans(world):

@@ -98,17 +98,25 @@ def test_run_windowed_matches_jax_pipeline():
 
 
 def test_unported_pipeline_branches_raise():
-    """What the port has not yet: a registration method other than GICP
-    (NDT, item 8). The backend on a worker thread (item 13) is ported:
-    AsyncBackend builds and run_windowed(overlap_backend=True) runs."""
+    """What the port had not: the backend on a worker thread (item 13) and
+    NDT odometry (item 8) are ported: AsyncBackend builds,
+    run_windowed(overlap_backend=True) runs, and a pipeline with NDT_OMP
+    odometry runs frames per frame and windowed. VGICP odometry (item 7)
+    still raises."""
     cfg = course_cfg(SlamConfig(), RegistrationConfig)
     pipe = SlamPipeline(cfg, cloud_capacity=CLOUD_CAPACITY, device="cpu")
     frames, _ = course()
     assert pipe.run_windowed(frames[:2], overlap_backend=True, raw_capacity=RAW_CAPACITY).num_frames == 2
     assert AsyncBackend(pipe.slam).interval == cfg.backend.graph_update_interval
     cfg = course_cfg(SlamConfig(), RegistrationConfig)
-    cfg.odometry.registration = RegistrationConfig(registration_method="NDT_OMP")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    cfg.odometry.registration = RegistrationConfig(registration_method="NDT_OMP", reg_resolution=2.0)
+    res = SlamPipeline(cfg, cloud_capacity=CLOUD_CAPACITY, device="cpu").run(frames[:3])
+    assert res.num_frames == 3 and np.isfinite(np.stack([T for _, T in res.odometry_trajectory])).all()
+    res = SlamPipeline(cfg, cloud_capacity=CLOUD_CAPACITY, device="cpu").run_windowed(frames[:3],
+                                                                                       raw_capacity=RAW_CAPACITY)
+    assert res.num_frames == 3
+    cfg.odometry.registration = RegistrationConfig(registration_method="FAST_VGICP")
+    with pytest.raises(NotImplementedError, match="item 7"):
         SlamPipeline(cfg, device="cpu")
 
 

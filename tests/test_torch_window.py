@@ -240,7 +240,7 @@ def test_port_never_imports_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'hdl_graph_slam_tpu'"
         " or m.startswith('hdl_graph_slam_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 59, names\n"
+        "assert len(names) >= 60, names\n"
         "print('ok', len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
@@ -266,8 +266,16 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         for make in ctors:
             with pytest.raises(RuntimeError, match="CUDA"):
                 make()
+    # NDT is ported: the window builds and runs it on the CPU when asked; VGICP raises
+    ndt_win = OdometryWindow(OdometryConfig(registration=RegistrationConfig(registration_method="NDT_OMP")),
+                             prefilter_cfg=PrefilterConfig(**PF), out_capacity=OUT_CAPACITY, device="cpu")
+    sc = scans()
+    xyz, mask = stack_scans(sc[1:3], capacity=RAW_CAPACITY)
+    _, odoms, status = ndt_win.run(ndt_win.init_state(0.0, cloud.from_numpy(sc[0], capacity=RAW_CAPACITY,
+                                                                           device="cpu")), xyz, mask, [0.1, 0.2])
+    assert odoms.shape == (2, 4, 4) and torch.isfinite(odoms).all() and status["iterations"].min() >= 1
     with pytest.raises(NotImplementedError):
-        OdometryWindow(OdometryConfig(registration=RegistrationConfig(registration_method="NDT_OMP")), device="cpu")
+        OdometryWindow(OdometryConfig(registration=RegistrationConfig(registration_method="FAST_VGICP")), device="cpu")
     # a kernel wrapper on a device that is neither the CPU nor CUDA raises
     meta = torch.zeros(8, 3, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Frames/s of the port's windowed odometry on the bench course, on one GPU.
 
-    python3 tools/odometry_fps.py [--root DIR] [--repeats 3]
-    python3 tools/odometry_fps.py --against DIR --pairs 10 [--repeats 3]
+    python3 tools/odometry_fps.py [--root DIR] [--repeats 3] [--ndt]
+    python3 tools/odometry_fps.py --against DIR --pairs 10 [--repeats 3] [--ndt]
 
 The first form runs chip_smoke.py's main path (``chip_smoke.main_path`` and
 ``drive_window``: bench.py's configs, course seed 0, 256 frames)
 ``--repeats`` times after one 16-frame warm-up window and prints one JSON
 line per run with frames/s and the gate values. ``--root`` picks the
 checkout whose ``hdl_graph_slam_tpu_torch`` is imported (default: this one).
+With ``--ndt`` the odometry is chip_smoke.py's ``ndt_main`` path instead
+(NDT_OMP DIRECT7, 2.0 m cells, 0.5 m re-association), and each line also
+carries the Newton iterations and the NDT kernels' launches a frame.
 
 The second form compares two checkouts on one card: it runs the first form
 in ``--pairs`` pairs of processes, this checkout and ``--against`` in turns
@@ -53,23 +56,31 @@ def load_scans(path: str) -> list:
     return scans
 
 
-def run_here(root: str, repeats: int, scans_path: str) -> None:
+def run_here(root: str, repeats: int, scans_path: str, ndt: bool) -> None:
     import torch
 
     sys.path.insert(0, os.path.abspath(root))
+    from hdl_graph_slam_tpu_torch.ops import knn
+
     scans = load_scans(scans_path)
-    win, first, xyz, mask, stamps = chip_smoke.main_path(scans)
+    odo_cfg = chip_smoke.ndt_odometry_config(chip_smoke.NDT_MAIN_REG) if ndt else None
+    win, first, xyz, mask, stamps = chip_smoke.main_path(scans, odo_cfg)
     chip_smoke.drive_window(win, first, xyz[:16], mask[:16], stamps[:16])  # warm-up: builds the kernels
     frames = xyz.shape[0]
     for rep in range(repeats):
+        chip_smoke.reset_launches(knn)
         _, odoms, status, dt = chip_smoke.drive_window(win, first, xyz, mask, stamps)
-        print(json.dumps(dict(root=os.path.abspath(root), repeat=rep, fps=frames / dt,
-                              final_x=float(odoms[-1, 0, 3]),
-                              converged_fraction=float(status["converged"].double().mean()),
-                              device=torch.cuda.get_device_name(0))), flush=True)
+        row = dict(root=os.path.abspath(root), repeat=rep, fps=frames / dt, final_x=float(odoms[-1, 0, 3]),
+                   converged_fraction=float(status["converged"].double().mean()),
+                   device=torch.cuda.get_device_name(0))
+        if ndt:
+            launches = chip_smoke.read_launches(knn)
+            row.update(newton_iterations_per_frame=float(status["iterations"].double().mean()),
+                       launches_per_frame={k: launches[f"ndt_{k}"] / frames for k in chip_smoke.NDT_COUNTERS})
+        print(json.dumps(row), flush=True)
 
 
-def run_pairs(against: str, pairs: int, repeats: int, scans_path: str) -> None:
+def run_pairs(against: str, pairs: int, repeats: int, scans_path: str, ndt: bool) -> None:
     load_scans(scans_path)
     sides = {"against": os.path.abspath(against), "this": REPO}
     med = {"against": [], "this": []}
@@ -77,13 +88,14 @@ def run_pairs(against: str, pairs: int, repeats: int, scans_path: str) -> None:
         for side in (("against", "this") if p % 2 == 0 else ("this", "against")):
             t0 = time.perf_counter()
             out = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", sides[side],
-                                  "--repeats", str(repeats), "--scans", scans_path],
+                                  "--repeats", str(repeats), "--scans", scans_path] + (["--ndt"] if ndt else []),
                                  capture_output=True, text=True, timeout=900, check=True)
-            fps = [json.loads(x)["fps"] for x in out.stdout.splitlines() if x.startswith("{")]
+            runs = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+            fps = [r["fps"] for r in runs]
             med[side].append(float(np.median(fps)))
             print(json.dumps(dict(pair=p, side=side, root=sides[side], fps=fps, median_fps=med[side][-1],
-                                  process_s=time.perf_counter() - t0)), flush=True)
-    summary = dict(pairs=pairs, repeats=repeats)
+                                  process_s=time.perf_counter() - t0, last=runs[-1])), flush=True)
+    summary = dict(pairs=pairs, repeats=repeats, path="ndt_main" if ndt else "main")
     for side, v in med.items():
         summary[side] = dict(root=sides[side], median_fps=float(np.median(v)),
                              q1_fps=float(np.percentile(v, 25)), q3_fps=float(np.percentile(v, 75)),
@@ -98,6 +110,7 @@ def main(argv=None) -> int:
     ap.add_argument("--against", default=None, help="second checkout: compare the two in pairs of processes")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--repeats", type=int, default=3, help="256-frame windows per process")
+    ap.add_argument("--ndt", action="store_true", help="drive chip_smoke.py's ndt_main path instead of main")
     ap.add_argument("--scans", default=os.path.join(REPO, "_cache", "course_seed0.npz"),
                     help=".npz cache of the course's raw scans")
     args = ap.parse_args(argv)
@@ -108,9 +121,9 @@ def main(argv=None) -> int:
         print("odometry_fps: torch.cuda.is_available() is False; this tool needs a GPU", file=sys.stderr)
         return 2
     if args.against:
-        run_pairs(args.against, args.pairs, args.repeats, os.path.abspath(args.scans))
+        run_pairs(args.against, args.pairs, args.repeats, os.path.abspath(args.scans), args.ndt)
     else:
-        run_here(args.root, args.repeats, os.path.abspath(args.scans))
+        run_here(args.root, args.repeats, os.path.abspath(args.scans), args.ndt)
     return 0
 
 
