@@ -31,11 +31,15 @@ before the last line:
            within FACE_ULPS eps32 of a cell face (judged in float64), g and
            H within 1e-4 of the largest |entry|, scores within 1e-5
            relative, 10 trial poses' scores likewise with the same argmin,
-           a batch of 3 equal to the batch of 1 row for row, bit for bit;
-           knn_select at k = 8 (KDTREE's cell candidates) through the
-           float64 near-tie gate; preprocess_target's time. Timed as the
-           kernel phase, with each kernel's bound from the bytes and
-           operations this run's inputs need (ndt_work, ndt_bounds).
+           one trial pose's too, a batch of 3 equal to the batch of 1 row
+           for row, bit for bit, each wrapper called again and again after
+           the batch of 3 bit for bit as before (the reductions' ticket
+           counters reset); knn_select at k = 8 (KDTREE's cell candidates)
+           through the float64 near-tie gate; preprocess_target's time.
+           Timed as the kernel phase, with each kernel's bound from the
+           bytes and operations this run's inputs need (ndt_work,
+           ndt_bounds), and each wrapper call one device operation in a
+           torch.profiler trace (device_ops_per_call).
 4. main    bench.py's windowed FAST_GICP odometry (its configs, its course
            with seed 0, 16384-row raw scans, 8192-row filtered clouds) through
            the port's OdometryWindow on cuda, with bench.py's gates; kernel
@@ -74,7 +78,9 @@ before the last line:
            against the CPU's, RANSAC card against CPU through
            fit_plane_from_triplets with the same triplets (the same inlier
            count, coefficients within 1e-5), each floor within 1 degree of
-           vertical and 0.05 m of the 1.8 m sensor height.
+           vertical and 0.05 m of the 1.8 m sensor height; RANSAC's
+           (4096, 3) x (3, 1024) fp32 product and its whole scoring timed
+           beside their bounds (fit_plane_bounds).
 7. graph   the port's dense LM pose-graph optimize on a golden-sized
            synthetic graph (94 poses, 2 laps, 12 loop edges) in float64 on
            the card against the same code on the CPU; ms per iteration on
@@ -210,15 +216,19 @@ GRAPH_CHI2_RTOL = 1e-9
 # r3_method_window.py's NDT row (2.0 m) and of the imu preset (10 m)
 NDT_RESOLUTIONS = (2.0, 10.0)
 NDT_TRIALS = 10  # ndt.align's num_line_search
+# the ndt_kernels poses: the first is the source's pose, all three the batch
+NDT_TWISTS = ((0.3, -0.1, 0.02, 0.002, -0.003, 0.01), (0.1, 0.05, 0.0, 0.0, 0.0, -0.02),
+              (-0.2, 0.0, 0.05, 0.004, 0.0, 0.0))
 # g and H, kernel vs plain on the same association: block-order float32
 # partials summed in float64 against one float32 einsum sum, of the largest
 # |entry| (the rotation block is ~r_max^2 times the translation block)
 NDT_DERIV_TOL = 1e-4
 NDT_SCORE_RTOL = 1e-5
-# fp32 operations the kernels do (csrc/ndt.cu), per found (point, cell) pair
-# and per valid point: the derivatives' q, B q, q.a, exp and four moments
-# (67) and the point's block algebra and transform (190); the score's q, B q,
-# q.a and exp (28) and its transform (18)
+# fp32 operations the functions need, per found (point, cell) pair and per
+# valid point, in their least form (the bound's work; csrc/ndt.cu's pair
+# grid repeats the per-point part for each pair): the derivatives' q, B q,
+# q.a, exp and four moments (67) and the point's block algebra and transform
+# (190); the score's q, B q, q.a and exp (28) and its transform (18)
 NDT_DERIV_OPS_PER_PAIR, NDT_DERIV_OPS_PER_POINT = 67, 190
 NDT_SCORE_OPS_PER_PAIR, NDT_SCORE_OPS_PER_POINT = 28, 18
 NDT_COUNTERS = ("associate", "derivatives", "trial_scores")  # registration/ndt.py wrappers
@@ -469,7 +479,6 @@ def profile_frames(win, state0, xyz, mask, stamps, n: int, main_s_per_frame: flo
     The idle share is given over the profiled wall time and over
     ``main_s_per_frame``, the unprofiled main run's wall time per frame."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -478,8 +487,7 @@ def profile_frames(win, state0, xyz, mask, stamps, n: int, main_s_per_frame: flo
         win.run(state0, xyz[:n], mask[:n], stamps[:n])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events(prof))
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -499,6 +507,38 @@ def profile_frames(win, state0, xyz, mask, stamps, n: int, main_s_per_frame: flo
                                  mean_us=dev_us(k) / max(k.count, 1)) for k in top],
                 port_kernels=[dict(name=k.key[:80], calls=k.count, total_ms=dev_us(k) * 1e-3,
                                    mean_us=dev_us(k) / max(k.count, 1)) for k in port])
+
+
+def device_events(prof) -> list:
+    """The device operations of a torch.profiler run (kernels, copies, sets)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ops_per_call(fn, calls: int = 10, pad_s: float = 0.05, tries: int = 3) -> tuple:
+    """(device operations per call of fn, their names): torch.profiler over
+    ``calls`` calls after a warm-up call (profile_frames' count). The window
+    is padded with ``pad_s`` seconds of idle host on both sides, and a trace
+    that holds no device event at all is taken again, up to ``tries``
+    times: late in a long process, traces of a few microseconds were seen
+    to come back without the device events of the calls they held."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        events = device_events(prof)
+        if events:
+            break
+    return len(events) / calls, sorted({e.name[:80] for e in events})
 
 
 # -- golden_town -----------------------------------------------------------------
@@ -816,7 +856,6 @@ def kernel_batched_phase(knn, golden, keyframes) -> dict:
 def graph_phase() -> None:
     """The port's optimize on the card against the same code on the CPU."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from hdl_graph_slam_tpu_torch.graph import optimize
 
@@ -829,7 +868,7 @@ def graph_phase() -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             optimize(data, max_iterations=its)
             torch.cuda.synchronize()
-        ops.append(sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
+        ops.append(len(device_events(prof)))
     optimize(g.freeze(dtype=torch.float64, device="cpu"), max_iterations=1)
     res = {}
     for dev in ("cuda", "cpu"):
@@ -1077,10 +1116,31 @@ def time_rows(fn, plain) -> dict:
                 plain_ms=time_ms(plain, reps=2, batches=3))
 
 
-def floor_phase(keyframes) -> dict:
+# ops/ransac.py fit_plane_from_triplets, per (point, hypothesis): n.p + d
+# (3 FMAs, 6 flops), abs, compare, and with the mask, count (4)
+FIT_PLANE_OPS_PER_PAIR = 10
+
+
+def fit_plane_bounds(n: int, k: int, peak_flops: float) -> dict:
+    """(bound ms, "bytes" or "operations") of ops/ransac.py's (n, 3) x (3, k)
+    fp32 product, which writes its (n, k) field, and of the whole
+    fit_plane_from_triplets, which needs only the points, the mask and the k
+    int64 triplets read once and the (n,) inlier mask and the plane written
+    (FIT_PLANE_OPS_PER_PAIR per pair)."""
+    def bound(nbytes, ops):
+        bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / peak_flops
+        return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+    return dict(product=bound(4 * (3 * n + 3 * k + n * k), 6 * n * k),
+                function=bound(12 * n + n + 24 * k + n + 4 * 4, FIT_PLANE_OPS_PER_PAIR * n * k))
+
+
+def floor_phase(keyframes, peak_flops: float) -> dict:
     """FloorDetector on the GOLDEN_B keyframe clouds on the card: the card's
     clipped cloud against the CPU's, RANSAC card against CPU on the same
-    triplets, each detected floor against the truth."""
+    triplets, each detected floor against the truth; the detect's time, and
+    RANSAC's (N, 3) x (3, K) product and fit_plane_from_triplets at the
+    detector's N x K with their bounds (fit_plane_bounds)."""
     import torch
     from hdl_graph_slam_tpu_torch.core.cloud import PointCloud
     from hdl_graph_slam_tpu_torch.frontend import FloorDetector
@@ -1119,6 +1179,20 @@ def floor_phase(keyframes) -> dict:
     row = dict(phase="floor", frames=rows, coeff_atol=FLOOR_COEFF_ATOL, tilt_max_deg=FLOOR_TILT_DEG,
                height_atol_m=FLOOR_HEIGHT_ATOL_M,
                detect_ms=time_ms(lambda: det.detect(c), reps=5, batches=3))
+    # the last keyframe's band and triplets at the detector's N x K
+    n, k = band.capacity, cfg.ransac_hypotheses
+    normals = torch.from_numpy(np.random.default_rng(SEED).normal(size=(k, 3)).astype(np.float32)).cuda()
+    nT = torch.nn.functional.normalize(normals, dim=1).T.contiguous()
+    tri_gpu = tri.cuda()
+    bounds = fit_plane_bounds(n, k, peak_flops)
+    row["fit_plane"] = dict(
+        shape=f"{n} x 3 x {k} fp32",
+        product=dict(kernel_ms=time_ms(lambda: band.xyz @ nT), device_ms=time_ms(lambda: band.xyz @ nT,
+                                                                               device_only=True),
+                     bound_ms=bounds["product"][0], bound_by=bounds["product"][1]),
+        function=dict(kernel_ms=time_ms(lambda: ransac.fit_plane_from_triplets(band, tri_gpu)),
+                      device_ms=time_ms(lambda: ransac.fit_plane_from_triplets(band, tri_gpu), device_only=True),
+                      bound_ms=bounds["function"][0], bound_by=bounds["function"][1]))
     emit(row)
     return row
 
@@ -1367,16 +1441,32 @@ def ndt_bounds(kernel: str, w: dict, peak_flops: float, trials: int = 1) -> tupl
     return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s else "bytes")
 
 
+def ndt_trial_poses(T, g, H, trials: int = NDT_TRIALS):
+    """(B, trials, 4, 4) line-search poses as ndt.align makes them: halving
+    steps from 0.1 along the Newton direction of (g, H) at the poses T."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core import se3
+
+    d = _ndt()._newton_direction(H, g, kdtree=False)
+    ddir = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    halves = torch.tensor([0.5**i for i in range(trials)], device=T.device)
+    return se3.compose(se3.se3_exp(0.1 * halves[None, :, None] * ddir[:, None]), T[:, None]).contiguous()
+
+
 def check_ndt(tgt, src, res: float, method: str, case: str, peak_flops: float, timed: bool) -> dict:
     """The three NDT kernels against their plain twins on one target and
     source cloud, at a pose off the truth: the association identical but on
     rows with a point within FACE_ULPS eps32 of a cell face (judged in
     float64); g and H within NDT_DERIV_TOL of the largest |entry|, the score
     within NDT_SCORE_RTOL; the NDT_TRIALS trial scores along the Newton
-    direction within NDT_SCORE_RTOL and the same argmin; a batch of 3 (the
-    pose and two others) equal row for row, bit for bit, to the batch of 1.
-    With ``timed``, each kernel and its twin are timed and its bound
-    computed (ndt_work, ndt_bounds); returns those rows by kernel."""
+    direction, and the one trial at the pose, within NDT_SCORE_RTOL and the
+    same argmin; a batch of 3 (the pose and two others) equal row for row,
+    bit for bit, to the batch of 1; each wrapper called again, and again
+    after the batch of 3, bit for bit as its first call (the reductions'
+    ticket counters reset). With ``timed``, each wrapper call must be one
+    device operation (torch.profiler), and each kernel and its twin are
+    timed and its bound computed (ndt_work, ndt_bounds); returns those rows
+    by kernel."""
     import torch
     from hdl_graph_slam_tpu_torch.core import se3
     from hdl_graph_slam_tpu_torch.ops import voxel
@@ -1385,27 +1475,31 @@ def check_ndt(tgt, src, res: float, method: str, case: str, peak_flops: float, t
     dev = torch.device("cuda")
     n = src.capacity
     xyz, mask = src.xyz[None].contiguous(), src.mask[None].contiguous()
-    twists = torch.tensor([[0.3, -0.1, 0.02, 0.002, -0.003, 0.01], [0.1, 0.05, 0.0, 0.0, 0.0, -0.02],
-                           [-0.2, 0.0, 0.05, 0.004, 0.0, 0.0]], device=dev)
-    Tb = se3.se3_exp(twists)  # (3, 4, 4)
+    Tb = se3.se3_exp(torch.tensor(NDT_TWISTS, device=dev))  # (3, 4, 4)
     T = Tb[:1].contiguous()
-    halves = torch.tensor([0.5**i for i in range(NDT_TRIALS)], device=dev)
     _, near = near_faces(src.xyz.cpu().numpy(), T[0].cpu().numpy(), res)
     face = torch.from_numpy(near.any(1)).to(dev) & src.mask
     ik, fk = ndt.associate(tgt, xyz, mask, T, method)
     ip, fp = ndt.associate_plain(tgt, xyz, mask, T, method)
     gk, Hk, sk = ndt.derivatives(tgt, xyz, mask, T, ik, fk)
     gp, Hp, sp = ndt.derivatives_plain(tgt, xyz, mask, T, ik, fk)
-    d = ndt._newton_direction(Hk, gk, kdtree=False)
-    ddir = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    Ts = se3.compose(se3.se3_exp(0.1 * halves[None, :, None] * ddir[:, None]), T[:, None]).contiguous()
+    Ts = ndt_trial_poses(T, gk, Hk)
     tk = ndt.trial_scores(tgt, xyz, mask, Ts, ik, fk)
     tp = ndt.trial_scores_plain(tgt, xyz, mask, Ts, ik, fk)
+    t1k = ndt.trial_scores(tgt, xyz, mask, T[:, None], ik, fk)
+    t1p = ndt.trial_scores_plain(tgt, xyz, mask, T[:, None], ik, fk)
+    again = ndt.derivatives(tgt, xyz, mask, T, ik, fk), ndt.trial_scores(tgt, xyz, mask, Ts, ik, fk)
     xb, mb = xyz.expand(3, -1, -1).contiguous(), mask.expand(3, -1).contiguous()
     ib, fb = ndt.associate(tgt, xb, mb, Tb, method)
     gb, Hb, sb = ndt.derivatives(tgt, xb, mb, Tb, ib, fb)
     tb = ndt.trial_scores(tgt, xb, mb, Ts.expand(3, -1, -1, -1).contiguous(), ib, fb)
+    after = (ndt.associate(tgt, xyz, mask, T, method), ndt.derivatives(tgt, xyz, mask, T, ik, fk),
+             ndt.trial_scores(tgt, xyz, mask, Ts, ik, fk))
     torch.cuda.synchronize()
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
     differ = ((ik != ip) | (fk != fp)).any(-1)[0]
     w = ndt_work(tgt, xyz, mask, T, ik, fk, method)
     cells = int(tgt.voxels.mask.sum())
@@ -1417,21 +1511,36 @@ def check_ndt(tgt, src, res: float, method: str, case: str, peak_flops: float, t
         H_err=float((Hk - Hp).abs().max() / Hp.abs().max()),
         score_rel_err=float(((sk - sp).abs() / sp.abs()).max()),
         trial_rel_err=float(((tk - tp).abs() / tp.abs()).max()),
+        trial1_rel_err=float(((t1k - t1p).abs() / t1p.abs()).max()),
         trial_argmin=[int(tk.argmin()), int(tp.argmin())],
         batch_rows_identical=bool(torch.equal(ib[:1], ik) and torch.equal(fb[:1], fk)
                                   and torch.equal(gb[:1], gk) and torch.equal(Hb[:1], Hk)
                                   and torch.equal(sb[:1], sk) and torch.equal(tb[:1], tk)),
+        repeat_identical=same(again[0], (gk, Hk, sk)) and torch.equal(again[1], tk),
+        after_batch_identical=same(after[0], (ik, fk)) and same(after[1], (gk, Hk, sk)) and torch.equal(after[2], tk),
     )
+    if timed:
+        row["device_ops_per_call"] = {name: device_ops_per_call(fn) for name, fn in (
+            ("ndt_associate", lambda: ndt.associate(tgt, xyz, mask, T, method)),
+            ("ndt_derivatives", lambda: ndt.derivatives(tgt, xyz, mask, T, ik, fk)),
+            ("ndt_trial_scores", lambda: ndt.trial_scores(tgt, xyz, mask, Ts, ik, fk)),
+            ("ndt_trial_scores_L1", lambda: ndt.trial_scores(tgt, xyz, mask, T[:, None], ik, fk)))}
     emit(row)
     what = f"{case} {res} {method}"
     require(row["rows_differ_off_face"] == 0, f"ndt associate {what}: rows differ off faces: {row}")
     require(row["g_err"] <= NDT_DERIV_TOL and row["H_err"] <= NDT_DERIV_TOL, f"ndt derivatives {what}: {row}")
-    require(row["score_rel_err"] <= NDT_SCORE_RTOL and row["trial_rel_err"] <= NDT_SCORE_RTOL,
+    require(max(row["score_rel_err"], row["trial_rel_err"], row["trial1_rel_err"]) <= NDT_SCORE_RTOL,
             f"ndt scores {what}: {row}")
     require(row["trial_argmin"][0] == row["trial_argmin"][1], f"ndt trial argmin {what}: {row}")
     require(row["batch_rows_identical"], f"ndt batch of 3 vs 1 {what}: {row}")
+    require(row["repeat_identical"] and row["after_batch_identical"], f"ndt repeated calls differ {what}: {row}")
     if not timed:
         return {}
+    kernel_of = dict(ndt_associate="ndt_associate_kernel", ndt_derivatives="ndt_derivatives_kernel",
+                     ndt_trial_scores="ndt_score_kernel", ndt_trial_scores_L1="ndt_score_kernel")
+    require(all(ops == 1.0 and len(names) == 1 and kernel_of[name] in names[0]
+                for name, (ops, names) in row["device_ops_per_call"].items()),
+            f"ndt {what}: a wrapper call is not one launch of its kernel: {row['device_ops_per_call']}")
     errs = dict(ndt_associate=float((ik != ip)[~face[None]].abs().sum()),
                 ndt_derivatives=float(max((gk - gp).abs().max(), (Hk - Hp).abs().max())),
                 ndt_trial_scores=float((tk - tp).abs().max()))
@@ -1463,7 +1572,7 @@ def ndt_kernels_phase(knn, clouds, peak_flops: float) -> dict:
 
     ndt = _ndt()
     tgt_cloud, src = clouds[0][0], clouds[1][0]
-    T = se3.se3_exp(torch.tensor([0.3, -0.1, 0.02, 0.002, -0.003, 0.01], device="cuda"))  # check_ndt's pose
+    T = se3.se3_exp(torch.tensor(NDT_TWISTS[0], device="cuda"))  # check_ndt's pose
     timed = {}
     for res in NDT_RESOLUTIONS:
         G = voxel.dense_grid_size_for(res)
@@ -1491,12 +1600,12 @@ def ndt_kernels_phase(knn, clouds, peak_flops: float) -> dict:
     return timed
 
 
-def ndt_imu_kernels_phase(golden, peak_flops: float) -> dict:
-    """check_ndt at the imu path's shapes: golden_town frames 0 (target) and
-    1 (source) through the imu preset's prefilter at IMU_CLOUD_CAPACITY rows
-    (no deskewing), the target as the preset's ScanMatchingOdometry builds
-    it (factory.make_target: 10 m cells, max_voxels IMU_CLOUD_CAPACITY, the
-    dense grid), DIRECT7, timed. Returns the timed rows by kernel."""
+def ndt_imu_case(scans, device: str = "cuda") -> tuple:
+    """The imu path's NDT kernel shapes: two raw scans through the imu
+    preset's prefilter at IMU_CLOUD_CAPACITY rows (no deskewing), the first
+    as the target the preset's ScanMatchingOdometry builds (factory.
+    make_target: 10 m cells, max_voxels IMU_CLOUD_CAPACITY, the dense
+    grid). Returns (target, source cloud, resolution, method)."""
     from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
     from hdl_graph_slam_tpu_torch.core.config import PRESETS
     from hdl_graph_slam_tpu_torch.frontend import Prefilter
@@ -1504,10 +1613,16 @@ def ndt_imu_kernels_phase(golden, peak_flops: float) -> dict:
 
     cfg = PRESETS["imu"]()
     reg = cfg.odometry.registration
-    pf = Prefilter(cfg.prefilter, out_capacity=IMU_CLOUD_CAPACITY, device="cuda")
-    tgt_cloud, src = (pf(cloudlib.from_numpy(s, device="cuda")) for s in golden["scans"][:2])
-    tgt = factory.make_target(reg, tgt_cloud, IMU_CLOUD_CAPACITY)
-    return check_ndt(tgt, src, reg.reg_resolution, reg.reg_nn_search_method, "imu", peak_flops, timed=True)
+    pf = Prefilter(cfg.prefilter, out_capacity=IMU_CLOUD_CAPACITY, device=device)
+    tgt_cloud, src = (pf(cloudlib.from_numpy(s, device=device)) for s in scans[:2])
+    return factory.make_target(reg, tgt_cloud, IMU_CLOUD_CAPACITY), src, reg.reg_resolution, reg.reg_nn_search_method
+
+
+def ndt_imu_kernels_phase(golden, peak_flops: float) -> dict:
+    """check_ndt, timed, on golden_town frames 0 (target) and 1 (source) at
+    the imu path's shapes (ndt_imu_case). Returns the timed rows by kernel."""
+    tgt, src, res, method = ndt_imu_case(golden["scans"])
+    return check_ndt(tgt, src, res, method, "imu", peak_flops, timed=True)
 
 
 def ndt_odometry_config(reg: dict):
@@ -2265,7 +2380,7 @@ def main(argv=None) -> int:
     keyframes = golden_keyframes(golden)
     bres = kernel_batched_phase(knn, golden, keyframes)
     fres = kernel_filters_phase(knn, keyframes, [c[0] for c in clouds], rng)
-    floor_phase(keyframes)
+    floor_phase(keyframes, peak_flops)
 
     # -- 7. pose graph, card vs CPU ---------------------------------------------
     graph_phase()

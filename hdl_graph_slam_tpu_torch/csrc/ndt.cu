@@ -18,52 +18,74 @@
 //   the JAX function returns (grid cell 0, or the clipped search position).
 //
 // ndt_derivatives_kernel: ndt.py:155 score_derivatives over :91
-//   _gather_mean_icov. Per source point p = T x and each found cell k of
-//   its association, the kernel reads the cell's (12,) [mean | icov] row
-//   itself, forms q = p - mu, a = B q, u = max(q.a, 0) and
-//   E = d1 exp(-d2/2 u), and accumulates the point's moments
-//   sum E, a~ = sum E a, A~ = sum E a a^T, B~ = sum E B. With
-//   M = -d2 A~ + B~ and Hp = hat(p) the point adds (unscaled by -d2)
-//     g  += [a~, p x a~]
-//     Hvv += M,  Hvw += -M Hp + hat(a~)/2,
-//     Hww += -Hp M Hp + (a~ p^T + p a~^T)/2 - (a~.p) I,
-//   which is ndt.py's block algebra :200-233 with its -d2 Agg Hp - B~ Hp
-//   terms folded into M. Per thread those 6 + 21 (the upper triangle) + 1
-//   (score) sums, then a fixed-order block reduction into per-block
-//   partials, and ndt_finish_kernel sums the partials in block order (in
-//   float64) and writes g = -d2 g, the symmetric H = -d2 H and the score.
+//   _gather_mean_icov. One thread per (point, cell) pair of the (n, K)
+//   association: for a found pair of a valid point, p = T x, the cell's
+//   (12,) [mean | icov] row read by the thread itself, q = p - mu, a = B q,
+//   u = max(q.a, 0), E = d1 exp(-d2/2 u), ea = E a and the pair's
+//   M = -d2 E a a^T + E B. At a fixed p, ndt.py's block algebra (:200-233)
+//   is linear in (M, ea), so each pair adds its own (unscaled by -d2)
+//     g  += [ea, p x ea]
+//     Hvv += M,  Hvw += -M Hp + hat(ea)/2,
+//     Hww += -Hp M Hp + (ea p^T + p ea^T)/2 - (ea.p) I,   Hp = hat(p),
+//   and the point's K pairs need not meet: the sum over pairs is the sum of
+//   the per-point moments (tests/test_torch_ndt_kernels.py). 6 + 21 (the
+//   upper triangle) + 1 (score) sums per thread, a fixed-order block sum
+//   into the block's partial row, then the finish below writes g = -d2 g,
+//   the symmetric H = -d2 H and the score.
 //
-// ndt_score_kernel: ndt.py:137 _score under the line search's vmap (:399):
-//   L trial poses against one association, the trial in blockIdx.y, the
-//   sum over points and found cells of E reduced like the derivatives.
+// ndt_score_kernel: ndt.py:137 _score under the line search's vmap (:399).
+//   The same pair grid, no trial dimension: the problem's L <= kMaxTrials
+//   poses sit in shared memory, and each thread reads its point, flags,
+//   cell index and cell row once and scores them under all L poses, L sums
+//   per thread. L = 10 is the line search, L = 1 the full score and the
+//   final error; re-associated trials come as B * L problems of L = 1.
+//
+// One launch per call. Each block writes its partial row and draws a ticket
+// from its problem's int32 counter; the block with the last ticket sums the
+// problem's rows in float64 and writes the output (sum_partials), then sets
+// the counter back to 0. The wrapper keeps the counters per (device,
+// stream), zeroed once when made.
 //
 // Every kernel takes a leading batch B of problems sharing one target (the
 // loop detector's candidates; odometry has B = 1) in the last grid
 // dimension; the unbatched wrappers are B = 1 of the same launch.
 //
-// Determinism: no float atomics. Each block writes its own partial row;
-// the grid size is a function of N only, and the finish kernel sums the
-// partials of a row in block order, so two runs on one card agree bit for
-// bit.
+// Determinism: no float atomics. The grid depends only on n and K, each
+// thread's pairs and each sum's order are fixed by it, and the finish's
+// order does not depend on which block came last, so two runs on one card
+// agree bit for bit and a batch of B gives each problem the bits of the
+// batch of one (chip_smoke.py's gates).
 //
-// Bound. At the bench's N = 8192 and K = 7 the derivatives read 98 KB of
-// points, 57 KB of association (int32 rows + flags) and at most the V
-// valid cells' 48-byte rows (~60 KB at 2 m cells) and do ~50 fp32
-// operations per found pair plus ~200 per point: ~5 MFLOP against
-// ~0.2 MB, under 1 us either way. What bounds this simple form is latency:
-// the gathers of cell rows by index, one thread per point, 128 threads a
-// block, and the two launches. Staging cell rows in shared memory and
-// fusing the finish into the last block are later work.
+// Bound. At ndt_main's shape (8192 rows, 6744 valid, K = 7, ~24.5k found
+// pairs, ~320 cells) the derivatives must read ~0.25 MB (points, flags,
+// indices of found pairs, each named cell row once) and do ~2.9 MFLOP
+// (chip_smoke.py ndt_bounds): under 0.1 us either way; the 10 trials ~7
+// MFLOP. What bounds them is latency: the launch, the chain of a pair's
+// index and cell-row loads, the block sum, the ticket and the last block's
+// read of every partial row. One point per thread would give 64 blocks of
+// 128 threads on 132 SMs, each thread walking its K cells in series; a
+// trial per block would read the association L times. The pair grid
+// gives 224 blocks of 256 threads at n = 8192 (448 at the imu path's
+// 16384), each thread one dependent gather; the block sum halves across a
+// warp (block_sum); each block's partial row is a 128-byte (or 64-byte) line
+// of its own, and the last block reads the rows whole, a warp four (or
+// eight) rows a load (sum_partials). The cell rows stay in global memory: at
+// max_voxels 16384 the (V, 12) table reaches 786 KB, and no measurement
+// shows the gathers bound the kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per block of the three reductions
+constexpr int kThreads = 256;  // threads per block of the derivative and score reductions
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocks = 1024;  // partial rows per problem, at most
+constexpr int kMaxBlocks = 1024;  // blocks (partial rows) per problem, at most
 constexpr int kMaxK = 8;  // DIRECT7 = 7, KDTREE = 8 (ndt.py _KDTREE_MAX_CELLS)
+constexpr int kMaxTrials = 16;  // trial poses per problem of one score launch
+constexpr int kFinishLoads = 16;  // partial rows a lane of the finish loads at once
+constexpr int kDerivRow = 32;  // floats per partial row of the derivatives (28 used)
+constexpr int kScoreRow = kMaxTrials;  // floats per partial row of the scores (L used)
 constexpr int kLocalBits = 10;
 constexpr int kLocalRange = 1 << kLocalBits;
 constexpr int kLocalInvalid = 0x7fffffff;
@@ -75,10 +97,10 @@ constexpr unsigned kFull = 0xffffffffu;
 __constant__ int c_offsets[7][3] = {{0, 0, 0}, {1, 0, 0}, {-1, 0, 0}, {0, 1, 0},
                                     {0, -1, 0}, {0, 0, 1}, {0, 0, -1}};
 
-// The blocks per problem for n points: one point per thread up to
-// kMaxBlocks blocks, then a grid-stride loop.
-int blocks_for(int n) {
-  const int b = (n + kThreads - 1) / kThreads;
+// The blocks per problem of the reductions for n x K (point, cell) pairs:
+// one pair per thread up to kMaxBlocks blocks, then a grid-stride loop.
+int blocks_for(int pairs) {
+  const int b = (pairs + kThreads - 1) / kThreads;
   return b < kMaxBlocks ? (b > 0 ? b : 1) : kMaxBlocks;
 }
 
@@ -97,21 +119,44 @@ __device__ __forceinline__ void load_row(const float4* __restrict__ rows, int i,
   B[6] = c.y; B[7] = c.z; B[8] = c.w;
 }
 
-// Sum `width` values per thread over the block in a fixed order (warp
-// shuffles, then the warps in order) and write them to out[0..width).
+// One level of block_sum's recursive halving across a warp: a lane hands
+// the partner H lanes away the half of its first 2H values it gives up and
+// adds the partner's copy of the half it keeps into v[0..H). After the
+// levels H = 16 (or 8), ..., 1, lane l holds the warp's sum of value l.
+template <int H, int W>
+__device__ __forceinline__ void halve(float (&v)[W], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float give = up ? v[i] : v[i + H], keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, give, H);
+  }
+  if constexpr (H > 1) halve<H / 2, W>(v, lane);
+}
+
+// Sum the first width <= W values of each thread over the block in a fixed
+// order into out[0..width): inside each warp by recursive halving (W - 1
+// shuffles for W = 32, 31 for W = 16, where a 5-level tree per value takes
+// 5 W: the shuffles bounded the pair grid at 448 blocks), then the warps in
+// order. One value (width == 1) takes the plain 5-level tree.
 template <int W>
-__device__ __forceinline__ void block_sum(float (&v)[W], float* __restrict__ out) {
+__device__ __forceinline__ void block_sum(float (&v)[W], int width, float* __restrict__ out) {
+  static_assert(W == 16 || W == 32, "halving over a warp");
   __shared__ float s[kWarps][W];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (width == 1) {
 #pragma unroll
-  for (int j = 0; j < W; ++j) {
-    float x = v[j];
+    for (int off = 16; off > 0; off >>= 1) v[0] += __shfl_down_sync(kFull, v[0], off);
+  } else {
+    if constexpr (W == 16) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(kFull, x, off);
-    if (lane == 0) s[warp][j] = x;
+      for (int i = 0; i < W; ++i) v[i] += __shfl_xor_sync(kFull, v[i], 16);
+    }
+    halve<W / 2, W>(v, lane);
   }
+  if (lane < W) s[warp][lane] = v[0];
   __syncthreads();
-  if (threadIdx.x < W) {
+  if ((int)threadIdx.x < width) {
     float x = s[0][threadIdx.x];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) x += s[w][threadIdx.x];
@@ -162,49 +207,112 @@ ndt_associate_kernel(const float* __restrict__ xyz, const unsigned char* __restr
   }
 }
 
+// -- the last block's finish ----------------------------------------------------
+
+// Whether this block is the last of its problem to finish: every thread
+// fences its writes, then thread 0 draws a ticket from the problem's
+// counter. The last ticket resets the counter to 0 for the next launch;
+// kernels on one stream do not overlap, so every launch on it (the
+// overlapped backend's thread launches on the same stream) finds 0.
+__device__ __forceinline__ bool last_block(int* __restrict__ ticket) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  return last;
+}
+
+// The first R floats of a problem's nblk partial rows (row blk at
+// p + blk * R, 16-byte aligned; written by other blocks of this launch:
+// read past L1) summed over the blocks in float64 into s[0..R), in an order
+// that does not depend on which block came last. A warp reads 32 / Q whole
+// rows at a time (Q = R / 4 float4s a row, lane l the float4 l % Q of row
+// l / Q), the block kWarps x 32 / Q rows a step; each lane adds its rows in
+// turn, kFinishLoads of them loaded at once; then the lanes of one float4
+// column add in a shuffle tree, and the warps in order.
+template <int R>
+__device__ __forceinline__ void sum_partials(const float* __restrict__ p, int nblk, double* __restrict__ s) {
+  constexpr int Q = R / 4, RW = 32 / Q, RB = kWarps * RW;
+  static_assert(R % 4 == 0 && 32 % Q == 0, "float4 columns that divide a warp");
+  __shared__ double sw[kWarps][R];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane % Q;
+  const float4* p4 = reinterpret_cast<const float4*>(p) + q;
+  const int r0 = warp * RW + lane / Q;
+  double x[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int base = r0; base < nblk; base += kFinishLoads * RB) {
+    float4 v[kFinishLoads];
+#pragma unroll
+    for (int u = 0; u < kFinishLoads; ++u) {
+      const int r = base + u * RB;
+      v[u] = r < nblk ? __ldcg(p4 + (size_t)r * Q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kFinishLoads; ++u) {
+      x[0] += (double)v[u].x; x[1] += (double)v[u].y; x[2] += (double)v[u].z; x[3] += (double)v[u].w;
+    }
+  }
+#pragma unroll
+  for (int off = Q; off < 32; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] += __shfl_xor_sync(kFull, x[e], off);
+  if (lane < Q) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sw[warp][4 * q + e] = x[e];
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < R) {
+    double y = sw[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) y += sw[w][threadIdx.x];
+    s[threadIdx.x] = y;
+  }
+  __syncthreads();
+}
+
 // -- derivatives ----------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 ndt_derivatives_kernel(const float* __restrict__ xyz, const unsigned char* __restrict__ mask,
                        const float* __restrict__ T, int n, int K, const int* __restrict__ idx,
                        const unsigned char* __restrict__ found, const float4* __restrict__ rows, float d1,
-                       float d2, float* __restrict__ partial) {
-  const int b = blockIdx.y;
-  const float* Tb = T + 16 * b;
-  float acc[kDerivWidth];
+                       float d2, float* __restrict__ partial, int* __restrict__ tickets, float* __restrict__ out) {
+  __shared__ float sT[16];
+  const int b = blockIdx.y, pairs = n * K;
+  if (threadIdx.x < 16) sT[threadIdx.x] = T[16 * b + threadIdx.x];
+  __syncthreads();
+  float acc[kDerivRow];
 #pragma unroll
-  for (int j = 0; j < kDerivWidth; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < kDerivRow; ++j) acc[j] = 0.0f;
   const float hd2 = -0.5f * d2;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
-    const size_t row = (size_t)b * n + i;
-    if (!mask[row]) continue;
-    float p[3];
-    transform(Tb, xyz[3 * row], xyz[3 * row + 1], xyz[3 * row + 2], p);
-    float sE = 0.0f, ea[3] = {0.0f, 0.0f, 0.0f}, A[6] = {0, 0, 0, 0, 0, 0}, Bs[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-    for (int k = 0; k < K; ++k) {
-      if (!found[row * K + k]) continue;
-      float mu[3], B[9];
-      load_row(rows, idx[row * K + k], mu, B);
-      const float q0 = p[0] - mu[0], q1 = p[1] - mu[1], q2 = p[2] - mu[2];
-      const float a0 = fmaf(B[0], q0, fmaf(B[1], q1, B[2] * q2));
-      const float a1 = fmaf(B[3], q0, fmaf(B[4], q1, B[5] * q2));
-      const float a2 = fmaf(B[6], q0, fmaf(B[7], q1, B[8] * q2));
-      const float u = fmaxf(fmaf(q0, a0, fmaf(q1, a1, q2 * a2)), 0.0f);
-      const float E = d1 * expf(hd2 * u);
-      sE += E;
-      const float e0 = E * a0, e1 = E * a1, e2 = E * a2;
-      ea[0] += e0; ea[1] += e1; ea[2] += e2;
-      A[0] = fmaf(e0, a0, A[0]); A[1] = fmaf(e0, a1, A[1]); A[2] = fmaf(e0, a2, A[2]);
-      A[3] = fmaf(e1, a1, A[3]); A[4] = fmaf(e1, a2, A[4]); A[5] = fmaf(e2, a2, A[5]);
-#pragma unroll
-      for (int j = 0; j < 9; ++j) Bs[j] = fmaf(E, B[j], Bs[j]);
-    }
-    // M = -d2 A~ + B~ (symmetric; B~ is the sum of symmetric icovs)
+  for (int t = blockIdx.x * kThreads + threadIdx.x; t < pairs; t += gridDim.x * kThreads) {
+    // every load of the pair is issued before the test: only the cell row
+    // waits on another load (its index)
+    const size_t row = (size_t)b * n + t / K, pair = (size_t)b * pairs + t;
+    const bool on = (mask[row] & found[pair]) != 0;
+    const int id = idx[pair];
+    const float x = xyz[3 * row], y = xyz[3 * row + 1], z = xyz[3 * row + 2];
+    if (!on) continue;
+    float p[3], mu[3], B[9];
+    transform(sT, x, y, z, p);
+    load_row(rows, id, mu, B);
+    const float q0 = p[0] - mu[0], q1 = p[1] - mu[1], q2 = p[2] - mu[2];
+    const float a0 = fmaf(B[0], q0, fmaf(B[1], q1, B[2] * q2));
+    const float a1 = fmaf(B[3], q0, fmaf(B[4], q1, B[5] * q2));
+    const float a2 = fmaf(B[6], q0, fmaf(B[7], q1, B[8] * q2));
+    const float u = fmaxf(fmaf(q0, a0, fmaf(q1, a1, q2 * a2)), 0.0f);
+    const float E = d1 * expf(hd2 * u);
+    const float ea[3] = {E * a0, E * a1, E * a2};
+    // this pair's M = -d2 E a a^T + E B (symmetric: B is an icov)
     float M[3][3];
-    M[0][0] = fmaf(-d2, A[0], Bs[0]); M[1][1] = fmaf(-d2, A[3], Bs[4]); M[2][2] = fmaf(-d2, A[5], Bs[8]);
-    M[0][1] = M[1][0] = fmaf(-d2, A[1], Bs[1]);
-    M[0][2] = M[2][0] = fmaf(-d2, A[2], Bs[2]);
-    M[1][2] = M[2][1] = fmaf(-d2, A[4], Bs[5]);
+    M[0][0] = fmaf(-d2, ea[0] * a0, E * B[0]); M[1][1] = fmaf(-d2, ea[1] * a1, E * B[4]);
+    M[2][2] = fmaf(-d2, ea[2] * a2, E * B[8]);
+    M[0][1] = M[1][0] = fmaf(-d2, ea[0] * a1, E * B[1]);
+    M[0][2] = M[2][0] = fmaf(-d2, ea[0] * a2, E * B[2]);
+    M[1][2] = M[2][1] = fmaf(-d2, ea[1] * a2, E * B[5]);
     // Hp = hat(p): Hp v = p x v
     const float Hp[3][3] = {{0.0f, -p[2], p[1]}, {p[2], 0.0f, -p[0]}, {-p[1], p[0], 0.0f}};
     float MH[3][3];  // M Hp
@@ -214,7 +322,7 @@ ndt_derivatives_kernel(const float* __restrict__ xyz, const unsigned char* __res
       for (int c = 0; c < 3; ++c) MH[r][c] = M[r][0] * Hp[0][c] + M[r][1] * Hp[1][c] + M[r][2] * Hp[2][c];
     const float he[3][3] = {{0.0f, -ea[2], ea[1]}, {ea[2], 0.0f, -ea[0]}, {-ea[1], ea[0], 0.0f}};
     const float adp = ea[0] * p[0] + ea[1] * p[1] + ea[2] * p[2];
-    // gradient (unscaled): [a~, p x a~]
+    // gradient (unscaled): [E a, p x E a]
     acc[0] += ea[0]; acc[1] += ea[1]; acc[2] += ea[2];
     acc[3] += p[1] * ea[2] - p[2] * ea[1];
     acc[4] += p[2] * ea[0] - p[0] * ea[2];
@@ -227,7 +335,7 @@ ndt_derivatives_kernel(const float* __restrict__ xyz, const unsigned char* __res
       for (int c = 0; c < 3; ++c) {
         Hrow[r][c] = M[r][c];
         Hrow[r][3 + c] = -MH[r][c] + 0.5f * he[r][c];
-        // -Hp M Hp + (a~ p^T + p a~^T)/2 - (a~.p) I
+        // -Hp M Hp + (E a p^T + p E a^T)/2 - (E a.p) I
         const float HMH = Hp[r][0] * MH[0][c] + Hp[r][1] * MH[1][c] + Hp[r][2] * MH[2][c];
         Hrow[3 + r][3 + c] = -HMH + 0.5f * (ea[r] * p[c] + p[r] * ea[c]) - (r == c ? adp : 0.0f);
       }
@@ -236,82 +344,71 @@ ndt_derivatives_kernel(const float* __restrict__ xyz, const unsigned char* __res
     for (int r = 0; r < 6; ++r)
 #pragma unroll
       for (int c = r; c < 6; ++c) acc[j++] += Hrow[r][c];
-    acc[27] += sE;
+    acc[27] += E;
   }
-  block_sum<kDerivWidth>(acc, partial + ((size_t)b * gridDim.x + blockIdx.x) * kDerivWidth);
+  // one 128-byte partial row per block: no two blocks write one sector
+  float* pb = partial + (size_t)b * gridDim.x * kDerivRow;
+  block_sum<kDerivRow>(acc, kDerivWidth, pb + (size_t)blockIdx.x * kDerivRow);
+  if (!last_block(tickets + b)) return;
+  // the finish: g = -d2 g, the symmetric H = -d2 H, the score, as (43,)
+  __shared__ double s[kDerivRow];
+  sum_partials<kDerivRow>(pb, gridDim.x, s);
+  const int e = threadIdx.x;
+  float* o = out + (size_t)b * kDerivOut;
+  if (e < 6) {
+    o[e] = (float)(-d2 * s[e]);
+  } else if (e < 42) {
+    const int rr = (e - 6) / 6, cc = (e - 6) % 6;
+    const int lo = rr < cc ? rr : cc, hi = rr < cc ? cc : rr;
+    // index of (lo, hi) in the row-major upper triangle
+    o[e] = (float)(-d2 * s[6 + lo * 6 - lo * (lo - 1) / 2 + (hi - lo)]);
+  } else if (e == 42) {
+    o[e] = (float)s[27];
+  }
 }
 
 // -- trial scores -----------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 ndt_score_kernel(const float* __restrict__ xyz, const unsigned char* __restrict__ mask,
-                 const float* __restrict__ T, int n, int K, const int* __restrict__ idx,
+                 const float* __restrict__ T, int L, int n, int K, const int* __restrict__ idx,
                  const unsigned char* __restrict__ found, const float4* __restrict__ rows, float d1, float d2,
-                 float* __restrict__ partial) {
-  const int l = blockIdx.y, L = gridDim.y, b = blockIdx.z;
-  const float* Tl = T + 16 * ((size_t)b * L + l);
+                 float* __restrict__ partial, int* __restrict__ tickets, float* __restrict__ out) {
+  __shared__ float sT[kMaxTrials][16];  // the problem's L poses
+  const int b = blockIdx.y, pairs = n * K;
+  for (int e = threadIdx.x; e < 16 * L; e += kThreads) sT[e >> 4][e & 15] = T[(size_t)b * L * 16 + e];
+  __syncthreads();
   const float hd2 = -0.5f * d2;
-  float acc[1] = {0.0f};
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
-    const size_t row = (size_t)b * n + i;
-    if (!mask[row]) continue;
-    float p[3];
-    transform(Tl, xyz[3 * row], xyz[3 * row + 1], xyz[3 * row + 2], p);
-    for (int k = 0; k < K; ++k) {
-      if (!found[row * K + k]) continue;
-      float mu[3], B[9];
-      load_row(rows, idx[row * K + k], mu, B);
+  float acc[kMaxTrials];
+#pragma unroll
+  for (int l = 0; l < kMaxTrials; ++l) acc[l] = 0.0f;
+  for (int t = blockIdx.x * kThreads + threadIdx.x; t < pairs; t += gridDim.x * kThreads) {
+    const size_t row = (size_t)b * n + t / K, pair = (size_t)b * pairs + t;
+    const bool on = (mask[row] & found[pair]) != 0;
+    const int id = idx[pair];
+    const float x = xyz[3 * row], y = xyz[3 * row + 1], z = xyz[3 * row + 2];
+    if (!on) continue;
+    float mu[3], B[9];
+    load_row(rows, id, mu, B);
+#pragma unroll
+    for (int l = 0; l < kMaxTrials; ++l) {
+      if (l >= L) break;
+      float p[3];
+      transform(sT[l], x, y, z, p);
       const float q0 = p[0] - mu[0], q1 = p[1] - mu[1], q2 = p[2] - mu[2];
       const float a0 = fmaf(B[0], q0, fmaf(B[1], q1, B[2] * q2));
       const float a1 = fmaf(B[3], q0, fmaf(B[4], q1, B[5] * q2));
       const float a2 = fmaf(B[6], q0, fmaf(B[7], q1, B[8] * q2));
       const float u = fmaxf(fmaf(q0, a0, fmaf(q1, a1, q2 * a2)), 0.0f);
-      acc[0] += d1 * expf(hd2 * u);
+      acc[l] += d1 * expf(hd2 * u);
     }
   }
-  block_sum<1>(acc, partial + ((size_t)b * L + l) * gridDim.x + blockIdx.x);
-}
-
-// -- second pass ------------------------------------------------------------------
-
-// Row r of `partial` (nblk x width) summed over its blocks in order, in
-// float64. width == kDerivWidth writes the derivatives' (43,) layout
-// [g (6) | H (36, symmetric) | score] scaled as ndt.py does (g and H by
-// -d2); width == 1 writes the sum.
-__global__ void ndt_finish_kernel(const float* __restrict__ partial, int nblk, int width, float scale,
-                                  float* __restrict__ out) {
-  __shared__ double s[kDerivWidth];
-  const int r = blockIdx.x, j = threadIdx.x;
-  const float* pr = partial + (size_t)r * nblk * width;
-  if (j < width) {
-    double x = 0.0;
-    for (int blk = 0; blk < nblk; ++blk) x += (double)pr[(size_t)blk * width + j];
-    s[j] = x;
-  }
-  __syncthreads();
-  if (width == 1) {
-    if (j == 0) out[r] = (float)s[0];
-    return;
-  }
-  float* o = out + (size_t)r * kDerivOut;
-  if (j < 6) {
-    o[j] = (float)(scale * s[j]);
-  } else if (j < 42) {
-    const int e = j - 6, rr = e / 6, cc = e % 6;
-    const int lo = rr < cc ? rr : cc, hi = rr < cc ? cc : rr;
-    // index of (lo, hi) in the row-major upper triangle
-    const int t = lo * 6 - lo * (lo - 1) / 2 + (hi - lo);
-    o[j] = (float)(scale * s[6 + t]);
-  } else if (j == 42) {
-    o[j] = (float)s[27];
-  }
-}
-
-// A failed runtime call leaves its error as the last error; clear it so the
-// next launch's check does not report it again.
-int failed(cudaError_t e) {
-  cudaGetLastError();
-  return (int)e;
+  float* pb = partial + (size_t)b * gridDim.x * kScoreRow;
+  block_sum<kMaxTrials>(acc, L, pb + (size_t)blockIdx.x * kScoreRow);
+  if (!last_block(tickets + b)) return;
+  __shared__ double s[kScoreRow];
+  sum_partials<kScoreRow>(pb, gridDim.x, s);
+  if ((int)threadIdx.x < L) out[(size_t)b * L + threadIdx.x] = (float)s[threadIdx.x];
 }
 
 }  // namespace
@@ -335,39 +432,34 @@ int hgs_ndt_associate(const float* xyz, const unsigned char* mask, const float* 
   return (int)cudaGetLastError();
 }
 
-// The blocks per problem the reductions use at n points (the partial rows
-// of the scratch the wrapper allocates).
-int hgs_ndt_blocks(int n) { return blocks_for(n); }
-
-// g (B, 6), H (B, 6, 6), score (B,) as out (B, 43); partial is scratch of
-// B * hgs_ndt_blocks(n) * 28 floats. rows is the target's (V, 12) float32
-// [mean | icov] table.
+// g (B, 6), H (B, 6, 6), score (B,) as out (B, 43), in one launch. nblk
+// must be the blocks per problem at n x K pairs (blocks_for, which the
+// wrapper computes itself); partial is scratch of B * nblk * kDerivRow
+// floats, 16-byte aligned, and
+// tickets B int32 counters, all 0 (each launch leaves them so). rows is the
+// target's (V, 12) float32 [mean | icov] table.
 int hgs_ndt_derivatives(const float* xyz, const unsigned char* mask, const float* T, int batch, int n, int K,
-                        const int* idx, const unsigned char* found, const float* rows, float d1, float d2,
-                        float* partial, float* out, void* stream) {
-  if (n <= 0 || batch <= 0 || batch > 65535 || K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
-  const int nblk = blocks_for(n);
+                        const int* idx, const unsigned char* found, const float* rows, float d1, float d2, int nblk,
+                        float* partial, int* tickets, float* out, void* stream) {
+  if (n <= 0 || batch <= 0 || batch > 65535 || K <= 0 || K > kMaxK || nblk != blocks_for(n * K))
+    return (int)cudaErrorInvalidValue;
   ndt_derivatives_kernel<<<dim3(nblk, batch), kThreads, 0, (cudaStream_t)stream>>>(
-      xyz, mask, T, n, K, idx, found, reinterpret_cast<const float4*>(rows), d1, d2, partial);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return failed(e);
-  ndt_finish_kernel<<<batch, 64, 0, (cudaStream_t)stream>>>(partial, nblk, kDerivWidth, -d2, out);
+      xyz, mask, T, n, K, idx, found, reinterpret_cast<const float4*>(rows), d1, d2, partial, tickets, out);
   return (int)cudaGetLastError();
 }
 
-// Scores of L trial poses T (B, L, 4, 4) under one association -> out
-// (B, L); partial is scratch of B * L * hgs_ndt_blocks(n) floats.
+// Scores of L <= kMaxTrials trial poses T (B, L, 4, 4) under one
+// association -> out (B, L), in one launch; partial is scratch of
+// B * nblk * kScoreRow floats, 16-byte aligned, tickets as for the
+// derivatives.
 int hgs_ndt_score(const float* xyz, const unsigned char* mask, const float* T, int batch, int L, int n, int K,
-                  const int* idx, const unsigned char* found, const float* rows, float d1, float d2,
-                  float* partial, float* out, void* stream) {
-  if (n <= 0 || batch <= 0 || batch > 65535 || L <= 0 || L > 65535 || K <= 0 || K > kMaxK)
+                  const int* idx, const unsigned char* found, const float* rows, float d1, float d2, int nblk,
+                  float* partial, int* tickets, float* out, void* stream) {
+  if (n <= 0 || batch <= 0 || batch > 65535 || L <= 0 || L > kMaxTrials || K <= 0 || K > kMaxK ||
+      nblk != blocks_for(n * K))
     return (int)cudaErrorInvalidValue;
-  const int nblk = blocks_for(n);
-  ndt_score_kernel<<<dim3(nblk, L, batch), kThreads, 0, (cudaStream_t)stream>>>(
-      xyz, mask, T, n, K, idx, found, reinterpret_cast<const float4*>(rows), d1, d2, partial);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return failed(e);
-  ndt_finish_kernel<<<batch * L, 64, 0, (cudaStream_t)stream>>>(partial, nblk, 1, 1.0f, out);
+  ndt_score_kernel<<<dim3(nblk, batch), kThreads, 0, (cudaStream_t)stream>>>(
+      xyz, mask, T, L, n, K, idx, found, reinterpret_cast<const float4*>(rows), d1, d2, partial, tickets, out);
   return (int)cudaGetLastError();
 }
 

@@ -71,6 +71,9 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built on first use)."""
+    lib = _libs.get(name)  # loaded: no lock on the launch path
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -99,11 +102,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         f = ctypes.c_float
         lib.hgs_ndt_associate.argtypes = [p, p, p, i, i, i, p, f, p, i, p, p, i, p, p, p]
         lib.hgs_ndt_associate.restype = i
-        lib.hgs_ndt_blocks.argtypes = [i]
-        lib.hgs_ndt_blocks.restype = i
-        lib.hgs_ndt_derivatives.argtypes = [p, p, p, i, i, i, p, p, p, f, f, p, p, p]
+        lib.hgs_ndt_derivatives.argtypes = [p, p, p, i, i, i, p, p, p, f, f, i, p, p, p, p]
         lib.hgs_ndt_derivatives.restype = i
-        lib.hgs_ndt_score.argtypes = [p, p, p, i, i, i, i, p, p, p, f, f, p, p, p]
+        lib.hgs_ndt_score.argtypes = [p, p, p, i, i, i, i, p, p, p, f, f, i, p, p, p, p]
         lib.hgs_ndt_score.restype = i
 
 

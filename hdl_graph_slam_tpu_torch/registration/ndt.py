@@ -263,26 +263,86 @@ def derivatives_plain(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: 
     return score_derivatives(tgt.d1, tgt.d2, se3.transform_points(T, xyz), mask, means, icovs, found)
 
 
+# csrc/ndt.cu's launch constants: threads a block of the reductions, blocks
+# a problem at most, cells a point at most, trial poses a score launch at
+# most, floats a partial row of the derivatives and of the scores
+_THREADS, _MAX_BLOCKS, _MAX_K, MAX_TRIALS = 256, 1024, 8, 16
+_DERIV_ROW, _SCORE_ROW = 32, MAX_TRIALS
+
+
+def _blocks(n: int, K: int) -> int:
+    """The blocks per problem of the derivative and score launches over n
+    points of K cells (ndt.cu blocks_for): one (point, cell) pair a thread
+    up to _MAX_BLOCKS blocks."""
+    return min(max(-(-n * K // _THREADS), 1), _MAX_BLOCKS)
+
+
+def _check_cells(name: str, xyz: torch.Tensor, idx: torch.Tensor, found: torch.Tensor, rows: torch.Tensor,
+                 trials: int = 1) -> None:
+    """What the reduction kernels take beyond ``_check``: the association
+    idx (B, n, K) int32 and found (B, n, K) bool and the target's (V, 12)
+    float32 cell rows on xyz's device, K at most _MAX_K, at most
+    MAX_TRIALS trial poses."""
+    if rows.dtype != torch.float32 or rows.ndim != 2 or rows.shape[1] != 12 or not rows.is_contiguous():
+        raise ValueError(f"{name}: cell rows must be contiguous (V, 12) float32, got {tuple(rows.shape)} {rows.dtype}")
+    if idx.dtype != torch.int32 or idx.shape[:2] != xyz.shape[:2] or idx.ndim != 3:
+        raise ValueError(f"{name}: idx must be (B, n, K) int32, got {tuple(idx.shape)} {idx.dtype}")
+    if found.dtype != torch.bool or found.shape != idx.shape:
+        raise ValueError(f"{name}: found must be {tuple(idx.shape)} bool, got {tuple(found.shape)} {found.dtype}")
+    if not (idx.device == found.device == rows.device == xyz.device):
+        raise ValueError(f"{name}: association on {idx.device}, {found.device}, cells on {rows.device}, "
+                         f"points on {xyz.device}")
+    if not 0 < idx.shape[2] <= _MAX_K:
+        raise ValueError(f"{name}: K = {idx.shape[2]} outside 1..{_MAX_K}")
+    if not 0 < trials <= MAX_TRIALS:
+        raise ValueError(f"{name}: {trials} trial poses outside 1..{MAX_TRIALS}")
+
+
+# (device index, raw stream) -> (tickets, partial): the kernels' int32 ticket
+# counters, zeroed once here and left at 0 by every launch, and their float32
+# partial rows. Launches on one stream run one after another, so every
+# caller on that stream (the overlapped backend's thread included) can share
+# them; a buffer is replaced only to grow.
+_workspaces: dict = {}
+
+
+def _workspace(x: torch.Tensor, stream: int, batch: int, floats: int):
+    """(tickets, partial) for a launch on ``stream`` of x's device with
+    ``batch`` problems and ``floats`` partial values."""
+    key = (x.device.index, stream)
+    tickets, partial = ws = _workspaces.get(key, (None, None))
+    if tickets is None or tickets.numel() < batch:
+        tickets = torch.zeros(max(batch, 64), dtype=torch.int32, device=x.device)
+    if partial is None or partial.numel() < floats:
+        partial = torch.empty(max(floats, 1 << 16), dtype=torch.float32, device=x.device)
+    if ws[0] is not tickets or ws[1] is not partial:
+        _workspaces[key] = (tickets, partial)
+    return tickets, partial
+
+
 def derivatives(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor, idx: torch.Tensor,
                 found: torch.Tensor):
     """Gradient (B, 6), Hessian (B, 6, 6) and score (B,) of the NDT mixture
     at the poses T (B, 4, 4) under the association idx / found (B, n, K)
-    (ndt_derivatives_kernel and its block-order finish on the card)."""
+    (ndt_derivatives_kernel on the card: one launch, its last block sums
+    the partial rows)."""
     _check("ndt derivatives", xyz, mask, T)
     if xyz.device.type == "cpu":
         return derivatives_plain(tgt, xyz, mask, T, idx, found)
+    _check_cells("ndt derivatives", xyz, idx, found, tgt.cell_rows)
     xyz, mask, T = xyz.contiguous(), mask.contiguous(), T.contiguous()
     idx, found = idx.contiguous(), found.contiguous()
     b, n = mask.shape
-    lib = kernels.load("ndt")
-    partial = torch.empty((b, lib.hgs_ndt_blocks(n), 28), dtype=torch.float32, device=xyz.device)
+    nblk, st = _blocks(n, idx.shape[-1]), kernels.stream(xyz)
+    tickets, partial = _workspace(xyz, st, b, b * nblk * _DERIV_ROW)
     out = torch.empty((b, 43), dtype=torch.float32, device=xyz.device)
-    kernels.check(lib.hgs_ndt_derivatives(
+    kernels.check(kernels.load("ndt").hgs_ndt_derivatives(
         xyz.data_ptr(), mask.data_ptr(), T.data_ptr(), b, n, idx.shape[-1], idx.data_ptr(), found.data_ptr(),
-        tgt.cell_rows.data_ptr(), ctypes.c_float(tgt.d1), ctypes.c_float(tgt.d2), partial.data_ptr(),
-        out.data_ptr(), kernels.stream(xyz)), "ndt derivatives")
+        tgt.cell_rows.data_ptr(), ctypes.c_float(tgt.d1), ctypes.c_float(tgt.d2), nblk, partial.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), st), "ndt derivatives")
     derivatives.launches += 1
-    return out[:, :6], out[:, 6:42].reshape(b, 6, 6), out[:, 42]
+    g, H, score = out.split((6, 36, 1), dim=1)
+    return g, H.view(b, 6, 6), score.view(b)
 
 
 derivatives.launches = 0
@@ -299,22 +359,26 @@ def trial_scores_plain(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T:
 def trial_scores(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor, idx: torch.Tensor,
                  found: torch.Tensor) -> torch.Tensor:
     """Scores of L trial poses T (B, L, 4, 4) of each problem under its one
-    association idx / found (B, n, K) -> (B, L) (ndt_score_kernel, the trial
-    in blockIdx.y, and its block-order finish on the card)."""
+    association idx / found (B, n, K) -> (B, L) (ndt_score_kernel on the
+    card: one launch for all L <= MAX_TRIALS trials, each point's cells
+    read once)."""
     _check("ndt trial_scores", xyz, mask, T)
     if xyz.device.type == "cpu":
         return trial_scores_plain(tgt, xyz, mask, T, idx, found)
+    if T.ndim != 4:
+        raise ValueError(f"ndt trial_scores: poses must be (B, L, 4, 4), got {tuple(T.shape)}")
+    L = T.shape[1]
+    _check_cells("ndt trial_scores", xyz, idx, found, tgt.cell_rows, trials=L)
     xyz, mask, T = xyz.contiguous(), mask.contiguous(), T.contiguous()
     idx, found = idx.contiguous(), found.contiguous()
     b, n = mask.shape
-    L = T.shape[1]
-    lib = kernels.load("ndt")
-    partial = torch.empty((b, L, lib.hgs_ndt_blocks(n)), dtype=torch.float32, device=xyz.device)
+    nblk, st = _blocks(n, idx.shape[-1]), kernels.stream(xyz)
+    tickets, partial = _workspace(xyz, st, b, b * nblk * _SCORE_ROW)
     out = torch.empty((b, L), dtype=torch.float32, device=xyz.device)
-    kernels.check(lib.hgs_ndt_score(
+    kernels.check(kernels.load("ndt").hgs_ndt_score(
         xyz.data_ptr(), mask.data_ptr(), T.data_ptr(), b, L, n, idx.shape[-1], idx.data_ptr(), found.data_ptr(),
-        tgt.cell_rows.data_ptr(), ctypes.c_float(tgt.d1), ctypes.c_float(tgt.d2), partial.data_ptr(),
-        out.data_ptr(), kernels.stream(xyz)), "ndt trial_scores")
+        tgt.cell_rows.data_ptr(), ctypes.c_float(tgt.d1), ctypes.c_float(tgt.d2), nblk, partial.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), st), "ndt trial_scores")
     trial_scores.launches += 1
     return out
 

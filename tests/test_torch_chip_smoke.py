@@ -129,6 +129,92 @@ def test_device_busy_unions_intervals():
     assert (busy, wall) == pytest.approx((30e-6, 50e-6))
 
 
+def test_device_ops_per_call_counts_device_events(monkeypatch):
+    """device_ops_per_call profiles ``calls`` calls after a warm-up one and
+    counts the device operations (kernels, copies, sets) in the trace, not
+    the host's events; device_events keeps the device's only."""
+    active = []
+
+    class FakeProfile:  # records the events of the calls made inside it
+        def __init__(self, activities):
+            self.evs = []
+
+        def __enter__(self):
+            active.append(self)
+            return self
+
+        def __exit__(self, *exc):
+            active.remove(self)
+            return False
+
+        def events(self):
+            return self.evs
+
+    calls = []
+
+    def fn():
+        calls.append(1)
+        for prof in active:
+            prof.evs += [_Ev("ndt_score_kernel", 0, 1, True), _Ev("aten::empty", 0, 1, False)]
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    assert chip_smoke.device_ops_per_call(fn, calls=4, pad_s=0.0) == (1.0, ["ndt_score_kernel"])
+    assert len(calls) == 5
+    # a trace that comes back without device events is taken again
+    lost = iter([True])
+    real_exit = FakeProfile.__exit__
+
+    def exit_losing_first(self, *exc):
+        if next(lost, False):
+            self.evs = [e for e in self.evs if not e.device_type.name == "CUDA"]
+        return real_exit(self, *exc)
+
+    monkeypatch.setattr(FakeProfile, "__exit__", exit_losing_first)
+    calls.clear()
+    assert chip_smoke.device_ops_per_call(fn, calls=4, pad_s=0.0) == (1.0, ["ndt_score_kernel"])
+    assert len(calls) == 9
+    prof = FakeProfile(None)
+    prof.evs = [_Ev("k", 0, 1, True), _Ev("h", 0, 1, False), _Ev("memset", 1, 2, True)]
+    assert [e.name for e in chip_smoke.device_events(prof)] == ["k", "memset"]
+
+
+def test_ndt_trial_poses_halve_along_the_newton_direction():
+    """ndt_trial_poses: trial l is the step 0.1 / 2^l along the Newton
+    direction of (g, H), left-multiplied onto the pose, for each problem."""
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.registration import ndt
+
+    rng = np.random.default_rng(4)
+    T = se3.se3_exp(torch.from_numpy(rng.normal(0, 0.1, (2, 6)).astype(np.float32)))
+    A = torch.from_numpy(rng.normal(size=(2, 6, 6)).astype(np.float32))
+    H, g = A @ A.transpose(1, 2) + torch.eye(6), torch.from_numpy(rng.normal(size=(2, 6)).astype(np.float32))
+    Ts = chip_smoke.ndt_trial_poses(T, g, H, trials=4)
+    d = ndt._newton_direction(H, g, kdtree=False)
+    ddir = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    assert Ts.shape == (2, 4, 4, 4) and Ts.is_contiguous()
+    for b in range(2):
+        for l in range(4):
+            want = se3.se3_exp(0.1 * 0.5**l * ddir[b]) @ T[b]
+            np.testing.assert_allclose(Ts[b, l].numpy(), want.numpy(), atol=1e-6)
+
+
+def test_ndt_imu_case_builds_the_imu_presets_target():
+    """ndt_imu_case: both scans through the imu preset's prefilter at
+    IMU_CLOUD_CAPACITY rows, the first as the preset's NDT target (10 m
+    cells, DIRECT7, the dense grid)."""
+    from hdl_graph_slam_tpu_torch.core.config import PRESETS
+    from hdl_graph_slam_tpu_torch.registration import ndt
+
+    rng = np.random.default_rng(6)
+    scans = [rng.uniform(-30, 30, (5000, 3)).astype(np.float32) * np.float32([1, 1, 0.1]) for _ in range(2)]
+    tgt, src, res, method = chip_smoke.ndt_imu_case(scans, device="cpu")
+    reg = PRESETS["imu"]().odometry.registration
+    assert (res, method) == (reg.reg_resolution, reg.reg_nn_search_method) == (10.0, "DIRECT7")
+    assert isinstance(tgt, ndt.NdtTarget) and tgt.grid is not None and tgt.voxels.resolution == 10.0
+    assert src.capacity == chip_smoke.IMU_CLOUD_CAPACITY and 0 < int(src.mask.sum()) <= 5000
+
+
 def test_stage_clock_wraps_and_restores():
     class Owner:
         def work(self, x):
@@ -242,6 +328,19 @@ def test_ndt_bounds_take_the_larger_of_bytes_and_operations():
     ten = chip_smoke.ndt_bounds("ndt_trial_scores", w, peak, trials=10)
     ops = 10 * (24503 * chip_smoke.NDT_SCORE_OPS_PER_PAIR + 6744 * chip_smoke.NDT_SCORE_OPS_PER_POINT)
     assert ten[1] == "operations" and ten[0] == pytest.approx(1e3 * ops / peak)
+
+
+def test_fit_plane_bounds_count_the_product_and_the_function():
+    """The (n, 3) x (3, k) product writes its n x k field and is bound by
+    bytes at the H100's rates; the whole RANSAC scoring needs no field, so
+    its operations bound it."""
+    peak, hbm = 66.9e12, chip_smoke.HBM_BYTES_PER_S
+    b = chip_smoke.fit_plane_bounds(4096, 1024, peak)
+    assert b["product"][1] == "bytes"
+    assert b["product"][0] == pytest.approx(1e3 * 4 * (3 * 4096 + 3 * 1024 + 4096 * 1024) / hbm)
+    assert b["function"][1] == "operations"
+    assert b["function"][0] == pytest.approx(1e3 * chip_smoke.FIT_PLANE_OPS_PER_PAIR * 4096 * 1024 / peak)
+    assert b["function"][0] < b["product"][0]
 
 
 def test_ndt_work_counts_what_the_data_needs():
