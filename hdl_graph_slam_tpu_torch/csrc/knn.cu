@@ -20,25 +20,21 @@
 // at k = 8 in the JAX package); ops/knn.py::knn adds the exact rescore of
 // the XLA ops/knn.py knn (top_k) on top of it.
 //
-// radius_count_kernel replaces the XLA ops/knn.py radius_count: for each
-// query the number of targets with squared distance strictly below r^2, the
-// query itself included when it is a target. The distance is the exact
-// difference form (3 subtractions and an FMA chain on uncentred
-// coordinates), not the expanded |q|^2 - 2 q.t + |t|^2 of the XLA op, so
-// the two can differ only for pairs within rounding of r^2. Skeleton of
-// nn1: persistent grid, 64 queries per block task (two per lane), warp w
-// counts the w-th slice of the staged targets, the 32 partial counts of a
-// query summed through shared memory. No sort, no selection. Bound: at the
-// radius filter's N = M = 4096, 16.8 M pairs of 10 fp32 operations
-// (3 FSUB, FMUL, 2 FFMA, a compare and an add), 2.5 us at 67 TFLOP/s; the
-// 96 KB of inputs move in 0.03 us.
+// radius_count_kernel replaces the XLA ops/knn.py radius_count
+// (hdl_graph_slam_tpu/ops/knn.py:180, called by ops/filters.py:68-74): for
+// each query the number of targets with squared distance strictly below
+// r^2, the query itself included when it is a target. The distance is the
+// exact difference form fmaf(dx, dx, fmaf(dy, dy, dz * dz)) on uncentred
+// coordinates, not the expanded |q|^2 - 2 q.t + |t|^2 of the XLA op, so the
+// two can differ only for pairs within rounding of r^2. Its section below
+// says what bounds it and what its design does about that.
 //
-// Bound. At the main path's N = M = 8192 both kernels do N*M = 67 M pairs of
+// Bound (nn1, knn_select). At the main path's N = M = 8192 both kernels do N*M = 67 M pairs of
 // 3 FMAs plus a compare and move only (N + M) * 12 bytes in and N * (8 or 8k)
 // bytes out: the work is fp32 operations, about 8 us at the H100's
 // 67 TFLOP/s. The N x M distance field is never written to memory.
 //
-// Residency (both). 1024-thread blocks, one per SM (32 resident warps), in a
+// Residency (nn1, knn_select). 1024-thread blocks, one per SM (32 resident warps), in a
 // persistent grid of at most one block per SM. Each block stages the whole
 // target cloud once, as centred float4(x, y, z, |t|^2), in dynamic shared
 // memory (128 KB at M = 8192). Every thread loads its rows into registers,
@@ -133,10 +129,6 @@ constexpr int kNnScratch = kWarps * kNnChunk * (int)sizeof(float2);  // partial 
 constexpr int kSelQ = 2;               // knn_select: queries per warp
 constexpr int kSelBack = 64;           // knn_select: rows scanned before the group's own row
 constexpr int kSelScratch = kWarps * kSelQ * 32 * (int)sizeof(float2);  // candidate buffers
-
-constexpr int kRcQ = 2;                // radius_count: queries per lane
-constexpr int kRcChunk = 32 * kRcQ;    // radius_count: queries per block task
-constexpr int kRcScratch = kWarps * kRcChunk * (int)sizeof(int);  // partial counts
 
 __device__ __forceinline__ bool lex_less(float d, int i, float d2, int i2) {
   return d < d2 || (d == d2 && i < i2);
@@ -549,61 +541,364 @@ knn_select_kernel(const float* __restrict__ q, int n, const float* __restrict__ 
 }
 
 // -- radius_count ---------------------------------------------------------------
+//
+// What bounds it. Not the pairs: at the radius filter's 4096 rows (3572
+// valid, r = 0.8 m) the 12.8 M valid pairs are 1.9 us of fp32 work at 67
+// TFLOP/s, and an 0.8 m neighbourhood holds ~5 targets of a query, so nearly
+// all of that work is on pairs that cannot count; at 16384 rows 40% of the
+// rows are padding. Run on nn1's skeleton (one 1024-thread block per SM, the
+// whole cloud staged per block), the staging and the barriers set the time,
+// not the pairs. When only the pairs that can count are tested, what is left
+// is latency (the launch, a few dependent L2 round trips) and the L2
+// requests of the tile bounds, which every query tile reads for every
+// target tile.
+//
+// The design:
+// - Tiles of 32 rows, one a lane. A tile's rows fall in three classes:
+//   valid (|x| < 1e5 on every axis, as nn1's centring), other (not valid,
+//   not NaN: the PAD_COORD padding) and NaN rows, which never count and are
+//   never counted, since every compare with NaN is false. A tile's boxes are
+//   the bounding box and count of its valid rows and, apart, of its other
+//   rows; the other rows are "one point" when that box is a point.
+// - Phase 1: each block's warp 0 (and others when there are more target
+//   tiles than blocks) writes a target tile's boxes to the table, kRcBox
+//   floats a tile stored component by component (a warp then reads 32
+//   consecutive tiles' component in one 128-byte line), then stamps the tile
+//   with the launch's stamp (a release store). A reader waits for the stamp
+//   (an acquire load) a bounded time, enough for blocks that start together,
+//   and past it computes the tile's boxes from its rows itself: no wait is
+//   unbounded, so the launch needs no grid barrier and no block need be
+//   resident. A launch with `own` set takes that path on every tile (the
+//   check that it counts as the table does: chip_smoke.py check_radius).
+//   The stamp is an argument of the launch, so a launch must not be
+//   captured in a CUDA graph: a replay would find its stamp already on the
+//   tiles, from the replay before, and read boxes of another target
+//   (ops/knn.py refuses a launch under capture).
+// - Phase 2: a block owns a query tile at a time; its warps read the target
+//   tiles' boxes 32 consecutive tiles a warp. A (query class, target class)
+//   pair of boxes is skipped when the fp32 lower bound of its distance, the
+//   per-axis gap max(0, qlo - thi, tlo - qhi) through the pair test's FMA
+//   chain, is >= r^2. Rounding is monotone and each gap is at most every |dx|
+//   of the two boxes, so the bound is at most every computed d^2 of their
+//   rows, and a skipped pair of boxes holds no counted pair.
+// - A target tile whose valid rows no query reaches and whose other rows are
+//   one point (the padding) costs each lane one test against that point,
+//   times their count, and one test for all such tiles of a warp's 32 when
+//   they share the point: padded queries keep the count of the padded
+//   targets.
+// - Any other tile not skipped goes to the block's list in shared memory.
+//   The block then reads the rows of kRcStage listed tiles at once (one row
+//   a thread and step, coalesced: one L2 round trip, not one a tile) into
+//   shared memory, and the warps take the staged tiles in turn (the tiles
+//   near a query tile, adjacent in the voxel-key order, spread over the
+//   warps), each counted against the warp's 32 queries by broadcast reads.
+//   A warp counts the tiles that overflow the list (more than kRcList full
+//   tiles, at m > 32768 rows) itself, one at a time.
+// - The warps' counts of a query are summed in warp order in shared memory
+//   and warp 0 writes them: each output row is written once, by its owner
+//   (no memset). Every pair that is tested takes the same arithmetic as
+//   before, and integer counts do not depend on which warp adds them, so the
+//   counts are the earlier kernel's bit for bit.
+// With a stats pointer the kernel also counts the tile pairs it tested in
+// full and against one point (ops/knn.py radius_count_tiles).
 
-__global__ void __launch_bounds__(kThreads, 1)
-radius_count_kernel(const float* __restrict__ q, int n, const float* __restrict__ t, int m, int stage_rows,
-                    float r2, int* __restrict__ out) {
-  extern __shared__ float4 smem[];
-  float4* cloud = smem;
-  int* part = reinterpret_cast<int*>(smem + stage_rows);  // [kWarps][kRcChunk]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float origin[3] = {0.0f, 0.0f, 0.0f};  // the difference form needs no centring
-  const int nstages = (m + stage_rows - 1) / stage_rows;
-  int loaded = -1;
+constexpr int kRcThreads = 256;            // radius_count: threads per block
+constexpr int kRcWarps = kRcThreads / 32;
+constexpr int kRcTile = 32;                // rows per tile, one a lane
+constexpr int kRcBox = 14;                 // table floats per tile
+constexpr int kRcList = 1024;              // full tiles of a query tile dealt through shared memory
+constexpr int kRcStage = 32;               // listed tiles the block stages in shared memory at once
+constexpr long long kRcWaitCycles = 20000; // how long a lane waits for a tile's stamp (~10 us)
 
-  const int chunks = (n + kRcChunk - 1) / kRcChunk;
-  for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
-    float qx[kRcQ], qy[kRcQ], qz[kRcQ];
-    int cnt[kRcQ];
+// the table's components: valid rows' lo, hi; other rows' lo, hi; their counts
+constexpr int kVlo = 0, kVhi = 3, kOlo = 6, kOhi = 9, kNv = 12, kNo = 13;
+
+// The rows of one class of a tile: bounding box and count (lo > hi when none).
+struct Box {
+  float lo[3], hi[3];
+  int n;
+};
+
+struct TileBoxes {
+  Box v, o;  // valid rows, other (non-NaN) rows
+};
+
+// The box of the lanes' rows (x, y, z) that are `mine`; warp-uniform.
+__device__ __forceinline__ Box warp_box(bool mine, float x, float y, float z) {
+  Box b;
+  b.n = __popc(__ballot_sync(kFull, mine));
+  const float v[3] = {x, y, z};
 #pragma unroll
-    for (int r = 0; r < kRcQ; ++r) {
-      const int qr = min(chunk * kRcChunk + lane + 32 * r, n - 1);
-      qx[r] = q[3 * qr];
-      qy[r] = q[3 * qr + 1];
-      qz[r] = q[3 * qr + 2];
-      cnt[r] = 0;
+  for (int a = 0; a < 3; ++a) {
+    if (b.n == 0) {
+      b.lo[a] = INFINITY;
+      b.hi[a] = -INFINITY;
+    } else {
+      b.lo[a] = unordered(__reduce_min_sync(kFull, mine ? ordered(v[a]) : INT_MAX));
+      b.hi[a] = unordered(__reduce_max_sync(kFull, mine ? ordered(v[a]) : INT_MIN));
     }
-    for (int st = 0; st < nstages; ++st) {
-      const int base = st * stage_rows, rows = min(stage_rows, m - base);
-      if (loaded != st) {
-        stage_next(t, base, rows, cloud, origin);
-        loaded = st;
-      }
-      const int per = (rows + kWarps - 1) / kWarps;
-      const int lo = min(rows, warp * per), hi = min(rows, lo + per);
-#pragma unroll 4
-      for (int j = lo; j < hi; ++j) {
-        const float4 p = cloud[j];
+  }
+  return b;
+}
+
+// The boxes of a tile whose lane holds row (x, y, z) when `in`.
+__device__ __forceinline__ TileBoxes tile_boxes(bool in, float x, float y, float z) {
+  const bool valid = in && fabsf(x) < kValidAbs && fabsf(y) < kValidAbs && fabsf(z) < kValidAbs;
+  const bool other = in && !valid && x == x && y == y && z == z;
+  return TileBoxes{warp_box(valid, x, y, z), warp_box(other, x, y, z)};
+}
+
+__device__ __forceinline__ bool one_point(const Box& b) {
+  return b.n > 0 && b.lo[0] == b.hi[0] && b.lo[1] == b.hi[1] && b.lo[2] == b.hi[2];
+}
+
+// The pair test's squared distance (and the boxes' lower bound).
+__device__ __forceinline__ float dist2(float dx, float dy, float dz) { return fmaf(dx, dx, fmaf(dy, dy, dz * dz)); }
+
+// Whether boxes a and b may hold a pair with d^2 < r2: false when either is
+// empty or the lower bound of their distance is >= r2 (a NaN bound reaches).
+__device__ __forceinline__ bool reach(const Box& a, const Box& b, float r2) {
+  if (a.n == 0 || b.n == 0) return false;
+  float g[3];
 #pragma unroll
-        for (int r = 0; r < kRcQ; ++r) {
-          const float dx = qx[r] - p.x, dy = qy[r] - p.y, dz = qz[r] - p.z;
-          cnt[r] += fmaf(dx, dx, fmaf(dy, dy, dz * dz)) < r2;
+  for (int i = 0; i < 3; ++i) g[i] = fmaxf(0.0f, fmaxf(a.lo[i] - b.hi[i], b.lo[i] - a.hi[i]));
+  return !(dist2(g[0], g[1], g[2]) >= r2);
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Write tile j's boxes to the table of `stride` tiles, then stamp it: lane
+// 0 writes every component, then the stamp with release semantics.
+__device__ __forceinline__ void store_boxes(float* __restrict__ boxes, unsigned* __restrict__ stamps, int stride,
+                                            int j, const TileBoxes& b, unsigned stamp, int lane) {
+  if (lane != 0) return;
+  const float v[kRcBox] = {b.v.lo[0], b.v.lo[1], b.v.lo[2], b.v.hi[0], b.v.hi[1], b.v.hi[2],
+                           b.o.lo[0], b.o.lo[1], b.o.lo[2], b.o.hi[0], b.o.hi[1], b.o.hi[2],
+                           __int_as_float(b.v.n), __int_as_float(b.o.n)};
+#pragma unroll
+  for (int c = 0; c < kRcBox; ++c) boxes[(size_t)c * stride + j] = v[c];
+  st_release(stamps + j, stamp);
+}
+
+// Tile j's boxes computed by this lane alone from the tile's rows, with the
+// same exact minima and maxima as tile_boxes (ordered integers): the
+// fallback for a tile whose stamp does not come (out of line: it is rare,
+// and inline it would cost the common path registers).
+__device__ __noinline__ TileBoxes lane_boxes(const float* __restrict__ t, int m, int j) {
+  TileBoxes b;
+  int vlo[3], vhi[3], olo[3], ohi[3];  // ordered coordinates
+  b.v.n = b.o.n = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    vlo[a] = olo[a] = INT_MAX;
+    vhi[a] = ohi[a] = INT_MIN;
+  }
+  for (int r = j * kRcTile; r < min(m, (j + 1) * kRcTile); ++r) {
+    const float* p = t + 3 * (size_t)r;
+    const float v[3] = {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+    if (fabsf(v[0]) < kValidAbs && fabsf(v[1]) < kValidAbs && fabsf(v[2]) < kValidAbs) {
+      ++b.v.n;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        vlo[a] = min(vlo[a], ordered(v[a]));
+        vhi[a] = max(vhi[a], ordered(v[a]));
+      }
+    } else if (v[0] == v[0] && v[1] == v[1] && v[2] == v[2]) {
+      ++b.o.n;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        olo[a] = min(olo[a], ordered(v[a]));
+        ohi[a] = max(ohi[a], ordered(v[a]));
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b.v.lo[a] = b.v.n > 0 ? unordered(vlo[a]) : INFINITY;
+    b.v.hi[a] = b.v.n > 0 ? unordered(vhi[a]) : -INFINITY;
+    b.o.lo[a] = b.o.n > 0 ? unordered(olo[a]) : INFINITY;
+    b.o.hi[a] = b.o.n > 0 ? unordered(ohi[a]) : -INFINITY;
+  }
+  return b;
+}
+
+// Tile j's boxes: from the table once its stamp is this launch's (written
+// by another block of this launch: read past L1). The lane waits for the
+// stamp up to kRcWaitCycles, the time blocks that start together take to
+// write the table, then computes the boxes itself (lane_boxes): no wait is
+// unbounded, so no block depends on another being resident. With `own` it
+// computes them itself at once.
+__device__ __forceinline__ TileBoxes load_boxes(const float* __restrict__ boxes, const unsigned* __restrict__ stamps,
+                                                int stride, int j, unsigned stamp, const float* __restrict__ t,
+                                                int m, bool own) {
+  if (own) return lane_boxes(t, m, j);
+  bool ready = ld_acquire(stamps + j) == stamp;
+  if (!ready) {
+    const long long t0 = clock64();
+    do {
+      __nanosleep(100);
+      ready = ld_acquire(stamps + j) == stamp;
+    } while (!ready && clock64() - t0 < kRcWaitCycles);
+    if (!ready) return lane_boxes(t, m, j);
+  }
+  const float* p = boxes + j;
+  TileBoxes b;
+  b.v.n = __float_as_int(__ldcg(p + (size_t)kNv * stride));
+  b.o.n = __float_as_int(__ldcg(p + (size_t)kNo * stride));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b.v.lo[a] = b.v.n > 0 ? __ldcg(p + (size_t)(kVlo + a) * stride) : INFINITY;
+    b.v.hi[a] = b.v.n > 0 ? __ldcg(p + (size_t)(kVhi + a) * stride) : -INFINITY;
+    b.o.lo[a] = b.o.n > 0 ? __ldcg(p + (size_t)(kOlo + a) * stride) : INFINITY;
+    b.o.hi[a] = b.o.n > 0 ? __ldcg(p + (size_t)(kOhi + a) * stride) : -INFINITY;
+  }
+  return b;
+}
+
+// Target row r as float4(x, y, z, 0); NaN past the end, so it never counts.
+__device__ __forceinline__ float4 tile_row(const float* __restrict__ t, int m, int r) {
+  if (r >= m) return make_float4(NAN, NAN, NAN, 0.0f);
+  const float* p = t + 3 * (size_t)r;
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), 0.0f);
+}
+
+// This lane's query (qx, qy, qz) counted against the 32 staged rows of a
+// target tile (broadcast reads of shared memory).
+__device__ __forceinline__ int count_tile(const float4* rows, float qx, float qy, float qz, float r2) {
+  int c0 = 0, c1 = 0;  // two chains of integer adds
+#pragma unroll
+  for (int k = 0; k < kRcTile; k += 2) {
+    const float4 a = rows[k], b = rows[k + 1];
+    c0 += dist2(qx - a.x, qy - a.y, qz - a.z) < r2;
+    c1 += dist2(qx - b.x, qy - b.y, qz - b.z) < r2;
+  }
+  return c0 + c1;
+}
+
+__global__ void __launch_bounds__(kRcThreads)
+radius_count_kernel(const float* __restrict__ q, int n, const float* __restrict__ t, int m, float r2,
+                    float* __restrict__ boxes, unsigned* __restrict__ stamps, unsigned stamp, int own,
+                    int* __restrict__ stats, int* __restrict__ out) {
+  __shared__ float4 s_stage[kRcStage * kRcTile];  // staged rows of listed target tiles
+  __shared__ int s_cnt[kRcWarps][kRcTile];        // the warps' counts of the block's query tile
+  __shared__ int s_list[kRcList];                 // the query tile's full target tiles
+  __shared__ int s_nlist;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  const int qtiles = (n + kRcTile - 1) / kRcTile, ttiles = (m + kRcTile - 1) / kRcTile;
+
+  // this lane's query of query tile qt, 0 past the end (never written)
+  auto query = [&](int qt) {
+    const int qi = qt * kRcTile + lane;
+    return qi < n ? make_float4(__ldg(q + 3 * (size_t)qi), __ldg(q + 3 * (size_t)qi + 1),
+                                __ldg(q + 3 * (size_t)qi + 2), 0.0f)
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
+  float4 qnext = query((int)blockIdx.x);
+
+  // phase 1: the target tiles' boxes, tile j by block j % gridDim.x
+  for (int j = blockIdx.x + gridDim.x * warp; j < ttiles; j += gridDim.x * kRcWarps) {
+    const int r = j * kRcTile + lane;
+    const float4 p = tile_row(t, m, r);
+    store_boxes(boxes, stamps, ttiles, j, tile_boxes(r < m, p.x, p.y, p.z), stamp, lane);
+  }
+
+  // phase 2: the query tiles
+  int nfull = 0, npoint = 0;
+  for (int qt = blockIdx.x; qt < qtiles; qt += gridDim.x) {
+    const int qi = qt * kRcTile + lane;
+    const bool qin = qi < n;
+    const float qx = qnext.x, qy = qnext.y, qz = qnext.z;
+    if (qt + (int)gridDim.x < qtiles) qnext = query(qt + (int)gridDim.x);
+    const TileBoxes qb = tile_boxes(qin, qx, qy, qz);
+    if (threadIdx.x == 0) s_nlist = 0;
+    __syncthreads();  // also: the previous query tile is done with s_list and s_cnt
+    int cnt = 0;
+    for (int first = warp * kRcTile; first < ttiles; first += kRcThreads) {
+      const int j = first + lane;  // this lane's target tile
+      bool full = false, point = false;
+      float px = 0.0f, py = 0.0f, pz = 0.0f;
+      int pn = 0;
+      if (j < ttiles) {
+        const TileBoxes tb = load_boxes(boxes, stamps, ttiles, j, stamp, t, m, own != 0);
+        const bool to_valid = reach(qb.v, tb.v, r2) || reach(qb.o, tb.v, r2);
+        const bool to_other = reach(qb.v, tb.o, r2) || reach(qb.o, tb.o, r2);
+        full = to_valid || (to_other && !one_point(tb.o));
+        point = !full && to_other;
+        px = tb.o.lo[0]; py = tb.o.lo[1]; pz = tb.o.lo[2];
+        pn = tb.o.n;
+      }
+      // tiles whose reachable rows are one point: one test for all that share it
+      unsigned mp = __ballot_sync(kFull, point);
+      npoint += __popc(mp);
+      if (mp) {
+        const int s0 = __ffs(mp) - 1;
+        const float x0 = __shfl_sync(kFull, px, s0), y0 = __shfl_sync(kFull, py, s0), z0 = __shfl_sync(kFull, pz, s0);
+        if (__all_sync(kFull, !point || (px == x0 && py == y0 && pz == z0))) {
+          const int c = __reduce_add_sync(kFull, point ? pn : 0);
+          cnt += dist2(qx - x0, qy - y0, qz - z0) < r2 ? c : 0;
+        } else {
+          while (mp) {
+            const int s = __ffs(mp) - 1;
+            mp &= mp - 1;
+            const float x = __shfl_sync(kFull, px, s), y = __shfl_sync(kFull, py, s), z = __shfl_sync(kFull, pz, s);
+            cnt += dist2(qx - x, qy - y, qz - z) < r2 ? __shfl_sync(kFull, pn, s) : 0;
+          }
         }
       }
+      // the other tiles not skipped go to the block's list; past its end, this warp counts them
+      const unsigned mf = __ballot_sync(kFull, full);
+      nfull += __popc(mf);
+      if (mf == 0) continue;
+      int base = 0;
+      if (lane == 0) base = atomicAdd(&s_nlist, __popc(mf));
+      base = __shfl_sync(kFull, base, 0) + __popc(mf & lt_mask);
+      if (full && base < kRcList) s_list[base] = j;
+      // (its own 32 rows of the stage: the block stages only after the loop)
+      float4* slot = s_stage + warp * kRcTile;
+      for (unsigned own = __ballot_sync(kFull, full && base >= kRcList); own != 0; own &= own - 1) {
+        slot[lane] = tile_row(t, m, (first + __ffs(own) - 1) * kRcTile + lane);
+        __syncwarp();
+        cnt += count_tile(slot, qx, qy, qz, r2);
+        __syncwarp();
+      }
     }
-    // sum the kWarps partial counts of each query: 16 consecutive threads
-    // per query, two partials each, then a 16-lane shuffle tree
-#pragma unroll
-    for (int r = 0; r < kRcQ; ++r) part[warp * kRcChunk + lane + 32 * r] = cnt[r];
     __syncthreads();
-    constexpr int kSubs = kThreads / kRcChunk;
-    const int ql = threadIdx.x / kSubs, sub = threadIdx.x % kSubs;
-    int total = 0;
-    for (int w = sub; w < kWarps; w += kSubs) total += part[w * kRcChunk + ql];
-    for (int s = kSubs / 2; s > 0; s >>= 1) total += __shfl_down_sync(kFull, total, s, kSubs);
-    const int qi = chunk * kRcChunk + ql;
-    if (sub == 0 && qi < n) out[qi] = total;
-    __syncthreads();  // part is rewritten by the next task
+    // the listed tiles, kRcStage at a time: the block reads their rows at
+    // once (one row a thread and step, coalesced), then warp w counts the
+    // staged tiles w, w + kRcWarps, ...
+    const int listed = min(s_nlist, kRcList);
+    for (int c0 = 0; c0 < listed; c0 += kRcStage) {
+      const int rows = min(kRcStage, listed - c0) * kRcTile;
+#pragma unroll
+      for (int i = 0; i < kRcStage * kRcTile / kRcThreads; ++i) {
+        const int e = threadIdx.x + i * kRcThreads;
+        if (e < rows) s_stage[e] = tile_row(t, m, s_list[c0 + e / kRcTile] * kRcTile + e % kRcTile);
+      }
+      __syncthreads();
+      for (int k = warp; k * kRcTile < rows; k += kRcWarps) cnt += count_tile(s_stage + k * kRcTile, qx, qy, qz, r2);
+      __syncthreads();
+    }
+    s_cnt[warp][lane] = cnt;
+    __syncthreads();
+    if (warp == 0 && qin) {
+      int total = 0;
+#pragma unroll
+      for (int w = 0; w < kRcWarps; ++w) total += s_cnt[w][lane];
+      out[qi] = total;
+    }
+  }
+  if (stats != nullptr && lane == 0) {
+    atomicAdd(stats, nfull);
+    atomicAdd(stats + 1, npoint);
   }
 }
 
@@ -686,8 +981,37 @@ cudaError_t plan_knn_select(const void* fn, int n, int m, int batch, Plan* p) {
   return make_plan(fn, kThreads, kSelScratch, m, (groups + kWarps - 1) / kWarps, batch, p);
 }
 
+// radius_count's launch: kRcThreads threads, no dynamic shared memory; the
+// grid is a block per query tile (or per kRcWarps target tiles, when there
+// are more of those), at most the blocks the device holds at once (a block
+// takes the next query tiles in turn).
 cudaError_t plan_radius_count(int n, int m, Plan* p) {
-  return make_plan((const void*)radius_count_kernel, kThreads, kRcScratch, m, (n + kRcChunk - 1) / kRcChunk, 1, p);
+  int dev;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  const void* fn = (const void*)radius_count_kernel;
+  std::lock_guard<std::mutex> lock(g_plans_mu);
+  auto it = g_plans.find(std::make_tuple(dev, fn, 0));
+  if (it == g_plans.end()) {
+    int sms;
+    cudaFuncAttributes a;
+    Plan q{};
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
+    if ((e = cudaFuncGetAttributes(&a, fn)) != cudaSuccess) return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&q.blocks_per_sm, fn, kRcThreads, 0)) != cudaSuccess)
+      return e;
+    if (q.blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
+    q.threads = kRcThreads;
+    q.regs = a.numRegs;
+    q.static_smem = (int)a.sharedSizeBytes;
+    it = g_plans.emplace(std::make_tuple(dev, fn, 0), std::make_pair(q, sms)).first;
+  }
+  *p = it->second.first;
+  const int qtiles = (n + kRcTile - 1) / kRcTile, ttiles = (m + kRcTile - 1) / kRcTile;
+  const int want = qtiles > (ttiles + kRcWarps - 1) / kRcWarps ? qtiles : (ttiles + kRcWarps - 1) / kRcWarps;
+  const int slots = it->second.second * p->blocks_per_sm;
+  p->grid = want < slots ? want : slots;
+  return cudaSuccess;
 }
 
 constexpr int kMaxBatch = 65535;  // gridDim.y
@@ -751,30 +1075,52 @@ int hgs_knn_select_batched(const float* q, int batch, int n, const float* t, int
   return launch_knn_select(q, batch, n, t, m, k, idx, dist, stream);
 }
 
-// out[i] = #{j : |q_i - t_j|^2 < r2}, q (n, 3) and t (m, 3).
-int hgs_radius_count(const float* q, int n, const float* t, int m, float r2, int* out, void* stream) {
+// out[i] = #{j : |q_i - t_j|^2 < r2}, q (n, 3) and t (m, 3), in one
+// launch. With T = ceil(m / 32) target tiles, boxes is scratch of
+// kRcBox * T floats and stamps T uint32 that hold 0 or an earlier launch's
+// stamp; stamp is this launch's, above every stamp in stamps (each launch
+// leaves its stamp on every tile). own != 0 has every lane compute its
+// tiles' boxes from their rows (the fallback path, for checks). stats is
+// null, or two int32 that get the tile pairs tested in full and against one
+// point added.
+int hgs_radius_count(const float* q, int n, const float* t, int m, float r2, float* boxes, unsigned* stamps,
+                     unsigned stamp, int own, int* stats, int* out, void* stream) {
+  if (n <= 0 || m <= 0 || stamp == 0) return (int)cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t e = plan_radius_count(n, m, &p);
+  if (e != cudaSuccess) return failed(e);
+  radius_count_kernel<<<p.grid, p.threads, 0, (cudaStream_t)stream>>>(q, n, t, m, r2, boxes, stamps, stamp, own,
+                                                                      stats, out);
+  return (int)cudaGetLastError();
+}
+
+// radius_count's launch at (n, m) on the current device: out = [resident
+// blocks per SM, threads per block, grid blocks, registers per thread,
+// static shared memory bytes, query tiles, target tiles, box table floats].
+int hgs_radius_count_launch_info(int n, int m, int* out) {
   if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   Plan p;
   const cudaError_t e = plan_radius_count(n, m, &p);
   if (e != cudaSuccess) return failed(e);
-  radius_count_kernel<<<p.grid, p.threads, p.smem, (cudaStream_t)stream>>>(q, n, t, m, p.stage_rows, r2, out);
-  return (int)cudaGetLastError();
+  const int ttiles = (m + kRcTile - 1) / kRcTile;
+  const int v[8] = {p.blocks_per_sm, p.threads, p.grid, p.regs, p.static_smem, (n + kRcTile - 1) / kRcTile,
+                    ttiles, ttiles * kRcBox};
+  for (int j = 0; j < 8; ++j) out[j] = v[j];
+  return 0;
 }
 
-// The launch plan of kernel `which` (0 = nn1, 1 = knn_select at k, 2 =
-// radius_count, unbatched only) at (n, m) and a batch of `batch` problems on
+// The launch plan of kernel `which` (0 = nn1, 1 = knn_select at k) at (n,
+// m) and a batch of `batch` problems on
 // the current device: out = [resident blocks per SM, threads per block,
 // dynamic shared memory bytes, grid blocks per problem, registers per
 // thread, staged rows, static shared memory bytes]. Returns a cudaError_t
 // (0 = ok).
 int hgs_knn_launch_info_batched(int which, int batch, int n, int m, int k, int* out) {
-  if (n <= 0 || m <= 0 || which < 0 || which > 2 || batch <= 0 || batch > kMaxBatch || (which == 2 && batch != 1))
+  if (n <= 0 || m <= 0 || which < 0 || which > 1 || batch <= 0 || batch > kMaxBatch)
     return (int)cudaErrorInvalidValue;
   if (which == 1 && knn_select_fn(k) == nullptr) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t e = which == 0   ? plan_nn1(n, m, batch, &p)
-                        : which == 1 ? plan_knn_select(knn_select_fn(k), n, m, batch, &p)
-                                     : plan_radius_count(n, m, &p);
+  const cudaError_t e = which == 0 ? plan_nn1(n, m, batch, &p) : plan_knn_select(knn_select_fn(k), n, m, batch, &p);
   if (e != cudaSuccess) return failed(e);
   const int v[7] = {p.blocks_per_sm, p.threads, p.smem, p.grid, p.regs, p.stage_rows, p.static_smem};
   for (int j = 0; j < 7; ++j) out[j] = v[j];

@@ -16,6 +16,9 @@
 //   one read of the dense (G^3,) cell -> row grid, or a binary search of the
 //   sorted key table. Out-of-grid cells are not found; their row is the one
 //   the JAX function returns (grid cell 0, or the clipped search position).
+//   It runs on the reductions' pair grid, one (point, cell) pair a thread,
+//   K a template argument: every thread does its own grid read or search,
+//   and the idx and found stores of a warp are consecutive.
 //
 // ndt_derivatives_kernel: ndt.py:155 score_derivatives over :91
 //   _gather_mean_icov. One thread per (point, cell) pair of the (n, K)
@@ -40,11 +43,11 @@
 //   per thread. L = 10 is the line search, L = 1 the full score and the
 //   final error; re-associated trials come as B * L problems of L = 1.
 //
-// One launch per call. Each block writes its partial row and draws a ticket
-// from its problem's int32 counter; the block with the last ticket sums the
-// problem's rows in float64 and writes the output (sum_partials), then sets
-// the counter back to 0. The wrapper keeps the counters per (device,
-// stream), zeroed once when made.
+// One launch per call. Each block of a reduction writes its partial row
+// and draws a ticket from its problem's int32 counter; the block with the
+// last ticket sums the problem's rows in float64 and writes the output
+// (sum_partials), then sets the counter back to 0. The wrapper keeps the
+// counters per (device, stream), zeroed once when made.
 //
 // Every kernel takes a leading batch B of problems sharing one target (the
 // loop detector's candidates; odometry has B = 1) in the last grid
@@ -57,28 +60,32 @@
 // batch of one (chip_smoke.py's gates).
 //
 // Bound. At ndt_main's shape (8192 rows, 6744 valid, K = 7, ~24.5k found
-// pairs, ~320 cells) the derivatives must read ~0.25 MB (points, flags,
-// indices of found pairs, each named cell row once) and do ~2.9 MFLOP
-// (chip_smoke.py ndt_bounds): under 0.1 us either way; the 10 trials ~7
-// MFLOP. What bounds them is latency: the launch, the chain of a pair's
-// index and cell-row loads, the block sum, the ticket and the last block's
-// read of every partial row. One point per thread would give 64 blocks of
-// 128 threads on 132 SMs, each thread walking its K cells in series; a
-// trial per block would read the association L times. The pair grid
-// gives 224 blocks of 256 threads at n = 8192 (448 at the imu path's
-// 16384), each thread one dependent gather; the block sum halves across a
-// warp (block_sum); each block's partial row is a 128-byte (or 64-byte) line
-// of its own, and the last block reads the rows whole, a warp four (or
-// eight) rows a load (sum_partials). The cell rows stay in global memory: at
-// max_voxels 16384 the (V, 12) table reaches 786 KB, and no measurement
-// shows the gathers bound the kernel.
+// pairs, ~320 cells) the association must read ~0.28 MB (flags, points, the
+// grid cell of each in-grid key) and write 0.29 MB of idx and found: 0.17 us
+// at 3.35 TB/s. The derivatives must read ~0.25 MB (points, flags, indices of
+// found pairs, each named cell row once) and do ~2.9 MFLOP (chip_smoke.py
+// ndt_bounds): under 0.1 us either way; the 10 trials ~7 MFLOP. What bounds
+// all three is latency: the launch, the chain of dependent loads of a pair
+// (its point, its grid cell or its search; for the reductions the cell row
+// behind its index), and for the reductions the block sum, the ticket and
+// the last block's read of every partial row. One point per thread would
+// give 32 blocks of 256 threads on 132 SMs at n = 8192, each thread walking
+// its K cells (K grid reads, or K searches of log2 V dependent loads) in
+// series, with found stored a byte every K; a trial per block would read the
+// association L times. The pair grid gives 224 blocks of 256 threads at n =
+// 8192 x 7 (448 at the imu path's 16384), each thread one dependent chain;
+// the block sum halves across a warp (block_sum); each block's partial row
+// is a 128-byte (or 64-byte) line of its own, and the last block reads the
+// rows whole, a warp four (or eight) rows a load (sum_partials). The cell
+// rows stay in global memory: at max_voxels 16384 the (V, 12) table reaches
+// 786 KB, and no measurement shows the gathers bound the kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per block of the derivative and score reductions
+constexpr int kThreads = 256;  // threads per block of the three kernels
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 1024;  // blocks (partial rows) per problem, at most
 constexpr int kMaxK = 8;  // DIRECT7 = 7, KDTREE = 8 (ndt.py _KDTREE_MAX_CELLS)
@@ -97,7 +104,7 @@ constexpr unsigned kFull = 0xffffffffu;
 __constant__ int c_offsets[7][3] = {{0, 0, 0}, {1, 0, 0}, {-1, 0, 0}, {0, 1, 0},
                                     {0, -1, 0}, {0, 0, 1}, {0, 0, -1}};
 
-// The blocks per problem of the reductions for n x K (point, cell) pairs:
+// The blocks per problem of every kernel here for n x K (point, cell) pairs:
 // one pair per thread up to kMaxBlocks blocks, then a grid-stride loop.
 int blocks_for(int pairs) {
   const int b = (pairs + kThreads - 1) / kThreads;
@@ -166,34 +173,38 @@ __device__ __forceinline__ void block_sum(float (&v)[W], int width, float* __res
 
 // -- association --------------------------------------------------------------
 
-__global__ void __launch_bounds__(256)
+// One (point, cell) pair a thread: thread t of problem b takes point t / K
+// and neighbour cell t % K, transforms the point (the same FMA chain and
+// division as every other pair of the point, so the K pairs agree on its
+// cell), forms its one key and does its one grid read or binary search;
+// consecutive threads write consecutive idx and found entries.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
 ndt_associate_kernel(const float* __restrict__ xyz, const unsigned char* __restrict__ mask,
-                     const float* __restrict__ T, int n, int K, const int* __restrict__ origin, float res,
+                     const float* __restrict__ T, int n, const int* __restrict__ origin, float res,
                      const int* __restrict__ grid, int G, const int* __restrict__ keys,
                      const unsigned char* __restrict__ vmask, int V, int* __restrict__ idx_out,
                      unsigned char* __restrict__ found_out) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t row = (size_t)b * n + i;
-  float p[3];
-  transform(T + 16 * b, xyz[3 * row], xyz[3 * row + 1], xyz[3 * row + 2], p);
-  const bool valid = mask[row] != 0;
-  int c[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) c[a] = (int)floorf(p[a] / res) - origin[a];
+  const int b = blockIdx.y, pairs = n * K;
   const int lim = G > 0 ? (G < kLocalRange ? G : kLocalRange) : kLocalRange;
-  for (int k = 0; k < K; ++k) {
-    const int r0 = c[0] + c_offsets[k][0], r1 = c[1] + c_offsets[k][1], r2 = c[2] + c_offsets[k][2];
-    const bool in = valid && r0 >= 0 && r0 < lim && r1 >= 0 && r1 < lim && r2 >= 0 && r2 < lim;
+  for (int t = blockIdx.x * kThreads + threadIdx.x; t < pairs; t += gridDim.x * kThreads) {
+    const int i = t / K, k = t - i * K;
+    const size_t row = (size_t)b * n + i, pair = (size_t)b * pairs + t;
+    float p[3];
+    transform(T + 16 * b, xyz[3 * row], xyz[3 * row + 1], xyz[3 * row + 2], p);
+    const bool valid = mask[row] != 0;
+    int r[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) r[a] = (int)floorf(p[a] / res) - origin[a] + c_offsets[k][a];
+    const bool in = valid && r[0] >= 0 && r[0] < lim && r[1] >= 0 && r[1] < lim && r[2] >= 0 && r[2] < lim;
     int id;
     bool f;
     if (G > 0) {  // voxel.py lookup_dense: an out-of-grid query reads cell 0
-      const int v = __ldg(grid + (in ? (r0 * G + r1) * G + r2 : 0));
+      const int v = __ldg(grid + (in ? (r[0] * G + r[1]) * G + r[2] : 0));
       f = in && v >= 0;
       id = v > 0 ? v : 0;
     } else {  // voxel.py lookup_voxels: lower bound in the sorted keys
-      const int key = in ? (r0 << (2 * kLocalBits)) | (r1 << kLocalBits) | r2 : kLocalInvalid;
+      const int key = in ? (r[0] << (2 * kLocalBits)) | (r[1] << kLocalBits) | r[2] : kLocalInvalid;
       int lo = 0, hi = V;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
@@ -202,8 +213,8 @@ ndt_associate_kernel(const float* __restrict__ xyz, const unsigned char* __restr
       id = lo < V - 1 ? lo : V - 1;
       f = in && __ldg(keys + id) == key && vmask[id] != 0;
     }
-    idx_out[row * K + k] = id;
-    found_out[row * K + k] = f;
+    idx_out[pair] = id;
+    found_out[pair] = f;
   }
 }
 
@@ -419,16 +430,20 @@ extern "C" {
 
 // B problems of n points against one target: xyz (B, n, 3), mask (B, n)
 // uint8, T (B, 4, 4), K = 1 or 7 -> idx (B, n, K) int32, found (B, n, K)
-// uint8. G > 0 reads the dense grid (G^3,); G == 0 searches keys (V,) with
-// vmask (V,).
+// uint8, one launch of blocks_for(n K) x B blocks. G > 0 reads the dense
+// grid (G^3,); G == 0 searches keys (V,) with vmask (V,).
 int hgs_ndt_associate(const float* xyz, const unsigned char* mask, const float* T, int batch, int n, int K,
                       const int* origin, float res, const int* grid, int G, const int* keys,
                       const unsigned char* vmask, int V, int* idx, unsigned char* found, void* stream) {
   if (n <= 0 || batch <= 0 || batch > 65535 || (K != 1 && K != 7) || G < 0 || (G == 0 && V <= 0))
     return (int)cudaErrorInvalidValue;
-  const dim3 grd((n + 255) / 256, batch);
-  ndt_associate_kernel<<<grd, 256, 0, (cudaStream_t)stream>>>(xyz, mask, T, n, K, origin, res, grid, G, keys,
-                                                              vmask, V, idx, found);
+  const dim3 grd(blocks_for(n * K), batch);
+  if (K == 7)
+    ndt_associate_kernel<7><<<grd, kThreads, 0, (cudaStream_t)stream>>>(xyz, mask, T, n, origin, res, grid, G,
+                                                                         keys, vmask, V, idx, found);
+  else
+    ndt_associate_kernel<1><<<grd, kThreads, 0, (cudaStream_t)stream>>>(xyz, mask, T, n, origin, res, grid, G,
+                                                                         keys, vmask, V, idx, found);
   return (int)cudaGetLastError();
 }
 

@@ -94,8 +94,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.hgs_nn1_batched.restype = i
         lib.hgs_knn_select_batched.argtypes = [p, i, i, p, i, i, p, p, p]
         lib.hgs_knn_select_batched.restype = i
-        lib.hgs_radius_count.argtypes = [p, i, p, i, ctypes.c_float, p, p]
+        lib.hgs_radius_count.argtypes = [p, i, p, i, ctypes.c_float, p, p, ctypes.c_uint, i, p, p, p]
         lib.hgs_radius_count.restype = i
+        lib.hgs_radius_count_launch_info.argtypes = [i, i, p]
+        lib.hgs_radius_count_launch_info.restype = i
         lib.hgs_knn_launch_info_batched.argtypes = [i, i, i, i, i, p]
         lib.hgs_knn_launch_info_batched.restype = i
     elif name == "ndt":
@@ -114,6 +116,30 @@ def stream(x) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+# (kind, device index, raw stream) -> (counters, scratch): a kernel's int32
+# counters and float32 scratch, zeroed once here and left as the kernel's
+# contract says by every launch. Launches on one stream run one after
+# another, so every caller on that stream (the overlapped backend's thread
+# included) can share them; a buffer is replaced only to grow.
+workspaces: dict = {}
+
+
+def workspace(x, stream: int, kind: str, ints: int, floats: int):
+    """(counters, scratch) of ``kind`` for a launch on ``stream`` of x's
+    device: at least ``ints`` int32 counters and ``floats`` float32 values."""
+    import torch
+
+    key = (kind, x.device.index, stream)
+    counters, scratch = ws = workspaces.get(key, (None, None))
+    if counters is None or counters.numel() < ints:
+        counters = torch.zeros(max(ints, 64), dtype=torch.int32, device=x.device)
+    if scratch is None or scratch.numel() < floats:
+        scratch = torch.zeros(max(floats, 1 << 16), dtype=torch.float32, device=x.device)
+    if ws[0] is not counters or ws[1] is not scratch:
+        workspaces[key] = (counters, scratch)
+    return counters, scratch
 
 
 def check(err: int, what: str) -> None:

@@ -13,7 +13,9 @@ plain PyTorch twin here:
   ``knn`` (the XLA ``knn``: floor normals, the statistical outlier filter)
   is ``knn_select`` plus an exact rescore in plain PyTorch.
 - ``radius_count``: targets strictly within a radius (the radius outlier
-  filter).
+  filter). Its kernel tests only the 32-row tile pairs whose bounding boxes
+  may hold a counted pair; ``radius_tile_plan`` is that rule in plain
+  PyTorch, and ``radius_count_tiles`` reports what the kernel tested.
 
 Both also have a batched form (``nn1_batched``, ``knn_select_batched``): B
 independent problems, each query set against its own target, in one launch
@@ -37,6 +39,7 @@ occupancy) on the card.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Tuple
 
 import torch
@@ -262,13 +265,21 @@ def launch_info(kernel: str, n: int, m: int, batch: int = 1, k: int = 20) -> dic
     """The launch plan the C entry point makes for ``kernel`` ("nn1",
     "knn_select" at ``k`` or "radius_count") at n queries and m targets (per
     problem of a batch of ``batch``) on the current CUDA device, with the
-    occupancy the runtime reports for it; ``grid_blocks`` is per problem."""
-    which = {"nn1": 0, "knn_select": 1, "radius_count": 2}[kernel]
-    out = (ctypes.c_int * 7)()
-    kernels.check(kernels.load("knn").hgs_knn_launch_info_batched(which, batch, n, m, k, ctypes.addressof(out)),
-                  f"{kernel} launch info")
-    keys = ("blocks_per_sm", "threads_per_block", "dynamic_smem_bytes", "grid_blocks", "registers_per_thread",
-            "stage_rows", "static_smem_bytes")
+    occupancy the runtime reports for it; ``grid_blocks`` is per problem.
+    radius_count (unbatched) reports its tiles and box table instead of
+    staged rows."""
+    lib = kernels.load("knn")
+    if kernel == "radius_count":
+        out = (ctypes.c_int * 8)()
+        kernels.check(lib.hgs_radius_count_launch_info(n, m, ctypes.addressof(out)), "radius_count launch info")
+        keys = ("blocks_per_sm", "threads_per_block", "grid_blocks", "registers_per_thread", "static_smem_bytes",
+                "query_tiles", "target_tiles", "box_table_floats")
+    else:
+        out = (ctypes.c_int * 7)()
+        kernels.check(lib.hgs_knn_launch_info_batched({"nn1": 0, "knn_select": 1}[kernel], batch, n, m, k,
+                                                      ctypes.addressof(out)), f"{kernel} launch info")
+        keys = ("blocks_per_sm", "threads_per_block", "dynamic_smem_bytes", "grid_blocks", "registers_per_thread",
+                "stage_rows", "static_smem_bytes")
     info = dict(zip(keys, out))
     info["resident_warps_per_sm"] = info["blocks_per_sm"] * info["threads_per_block"] // 32
     return info
@@ -301,6 +312,47 @@ def radius_count_plain(query: torch.Tensor, target: torch.Tensor, radius: float,
     return torch.cat(out)
 
 
+# radius_count's launch stamps: increasing in every workspace (next() on a
+# count is atomic, so host threads sharing a stream never share a stamp)
+_stamps = itertools.count(1)
+_STAMP_WRAP = 2**31
+
+
+def _radius_launch(query: torch.Tensor, target: torch.Tensor, radius: float, stats,
+                   own_boxes: bool = False) -> torch.Tensor:
+    """One launch of radius_count_kernel on CUDA tensors. The stream's
+    workspace holds the tiles' stamps (int32, zero when made) and the box
+    table; each launch takes a new stamp above every stamp already there.
+    At the wrap every stamp table is zeroed with nothing in flight on any
+    stream. A launch under CUDA graph capture raises: a replay would reuse
+    the captured stamp and could read an earlier replay's boxes."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("radius_count: its launch takes a new stamp every call and cannot be captured "
+                           "in a CUDA graph")
+    query, target = query.contiguous(), target.contiguous()
+    n, m = query.shape[0], target.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=query.device)
+    st = kernels.stream(query)
+    tiles = -(-m // RC_TILE)
+    stamps, boxes = kernels.workspace(query, st, "radius_count", tiles, RC_BOX * tiles)
+    stamp = next(_stamps) % _STAMP_WRAP
+    if stamp == 0:
+        tables = [t for (kind, *_), (t, _) in kernels.workspaces.items() if kind == "radius_count"]
+        devices = {t.device for t in tables}
+        for d in devices:
+            torch.cuda.synchronize(d)
+        for t in tables:
+            t.zero_()
+        for d in devices:
+            torch.cuda.synchronize(d)
+        stamp = next(_stamps) % _STAMP_WRAP
+    kernels.check(kernels.load("knn").hgs_radius_count(
+        query.data_ptr(), n, target.data_ptr(), m, radius * radius, boxes.data_ptr(), stamps.data_ptr(), stamp,
+        int(own_boxes), None if stats is None else stats.data_ptr(), out.data_ptr(), st), "radius_count")
+    radius_count.launches += 1
+    return out
+
+
 def radius_count(query: torch.Tensor, target: torch.Tensor, radius: float) -> torch.Tensor:
     """Number of targets strictly within ``radius`` of each query row, a
     coincident target (the query itself) included, as PCL's radiusSearch
@@ -314,17 +366,100 @@ def radius_count(query: torch.Tensor, target: torch.Tensor, radius: float) -> to
         return radius_count_plain(query, target, radius)
     if query.device.type != "cuda":
         raise ValueError(f"radius_count: unsupported device {query.device}")
-    query, target = query.contiguous(), target.contiguous()
-    n, m = query.shape[0], target.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=query.device)
-    lib = kernels.load("knn")
-    kernels.check(lib.hgs_radius_count(query.data_ptr(), n, target.data_ptr(), m, radius * radius, out.data_ptr(),
-                                       kernels.stream(query)), "radius_count")
-    radius_count.launches += 1
-    return out
+    return _radius_launch(query, target, radius, None)
 
 
 radius_count.launches = 0
+
+
+# csrc/knn.cu's radius_count tiles: rows a tile, floats a tile of the box table
+RC_TILE, RC_BOX = 32, 14
+_VALID_ABS32 = float(torch.tensor(_VALID_ABS, dtype=torch.float32))
+
+
+def radius_count_tiles(query: torch.Tensor, target: torch.Tensor, radius: float, own_boxes: bool = False) -> dict:
+    """What radius_count tests on these inputs: its (query tile, target
+    tile) pairs, those it counts in full and those it tests against one
+    point (a padded tile), and the counts it returns. On CUDA tensors the
+    kernel reports them itself (one launch, counted in
+    ``radius_count.launches``); with ``own_boxes`` every lane computes its
+    target tiles' boxes from their rows instead of reading the launch's
+    table (the kernel's fallback path, for checks). On CPU tensors they are
+    radius_tile_plan's, with the plain twin's counts."""
+    _check("radius_count_tiles", query, target)
+    pairs = -(-query.shape[0] // RC_TILE) * -(-target.shape[0] // RC_TILE)
+    if query.device.type == "cpu":
+        plan = radius_tile_plan(query, target, radius)
+        return dict(tile_pairs=pairs, full=int((plan == 2).sum()), point=int((plan == 1).sum()),
+                    counts=radius_count_plain(query, target, radius))
+    if query.device.type != "cuda":
+        raise ValueError(f"radius_count_tiles: unsupported device {query.device}")
+    stats = torch.zeros(2, dtype=torch.int32, device=query.device)
+    counts = _radius_launch(query, target, radius, stats, own_boxes)
+    full, point = stats.tolist()
+    return dict(tile_pairs=pairs, full=full, point=point, counts=counts)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as CUDA's fmaf: the float64 product of
+    two float32 is exact; the float64 sum is rounded to odd (TwoSum's error
+    picks the neighbour with an odd last bit), which then rounds to float32
+    as the exact sum would."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    step = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf))
+    return torch.where(torch.isfinite(s) & (err != 0) & even, step, s).float()
+
+
+def _dist2_32(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """The kernel's fmaf(dx, dx, fmaf(dy, dy, dz * dz)) in float32."""
+    return _fma32(dx, dx, _fma32(dy, dy, dz * dz))
+
+
+def _tile_boxes(x: torch.Tensor):
+    """Per 32-row tile of x (N, 3): the (lo, hi, count) of its valid rows and
+    of its other non-NaN rows, and whether those are all one point."""
+    nt = -(-x.shape[0] // RC_TILE)
+    pad = torch.full((nt * RC_TILE - x.shape[0], 3), float("nan"), dtype=x.dtype, device=x.device)
+    xt = torch.cat([x, pad]).reshape(nt, RC_TILE, 3)
+    valid = (xt.abs() < _VALID_ABS32).all(-1)
+    other = ~valid & ~torch.isnan(xt).any(-1)
+
+    def box(sel):
+        lo = torch.where(sel[..., None], xt, torch.inf).amin(1)
+        hi = torch.where(sel[..., None], xt, -torch.inf).amax(1)
+        return lo, hi, sel.sum(1)
+
+    o = box(other)
+    return box(valid), o, (o[2] > 0) & (o[0] == o[1]).all(-1)
+
+
+def _reach(a, b, r2: float) -> torch.Tensor:
+    """(tiles of a, tiles of b): whether the boxes may hold a pair with
+    d^2 < r2, by the kernel's fp32 lower bound."""
+    (alo, ahi, an), (blo, bhi, bn) = a, b
+    gap = torch.fmax(torch.fmax(alo[:, None] - bhi[None], blo[None] - ahi[:, None]), torch.zeros((), dtype=alo.dtype))
+    lb = _dist2_32(gap[..., 0], gap[..., 1], gap[..., 2])
+    return (an[:, None] > 0) & (bn[None] > 0) & ~(lb >= r2)
+
+
+def radius_tile_plan(query: torch.Tensor, target: torch.Tensor, radius: float) -> torch.Tensor:
+    """radius_count's tile rule in plain PyTorch (float32, the kernel's
+    arithmetic): (query tiles, target tiles) int8, 0 where the kernel skips
+    the tile pair, 1 where it tests each query against the target tile's
+    one point of padding (times its count), 2 where it counts every pair.
+    Tiles are 32 consecutive rows; the last tile's missing rows take no
+    part."""
+    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
+    qv, qo, _ = _tile_boxes(query)
+    tv, to, one = _tile_boxes(target)
+    to_valid = _reach(qv, tv, r2) | _reach(qo, tv, r2)
+    to_other = _reach(qv, to, r2) | _reach(qo, to, r2)
+    full = to_valid | (to_other & ~one[None])
+    return torch.where(full, 2, torch.where(to_other, 1, 0)).to(torch.int8)
 
 
 def fitness_score(

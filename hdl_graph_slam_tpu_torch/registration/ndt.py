@@ -298,26 +298,15 @@ def _check_cells(name: str, xyz: torch.Tensor, idx: torch.Tensor, found: torch.T
         raise ValueError(f"{name}: {trials} trial poses outside 1..{MAX_TRIALS}")
 
 
-# (device index, raw stream) -> (tickets, partial): the kernels' int32 ticket
-# counters, zeroed once here and left at 0 by every launch, and their float32
-# partial rows. Launches on one stream run one after another, so every
-# caller on that stream (the overlapped backend's thread included) can share
-# them; a buffer is replaced only to grow.
-_workspaces: dict = {}
+# the reductions' workspaces (kernels.workspace): the int32 ticket counters,
+# one a problem, and the float32 partial rows
+_workspaces = kernels.workspaces
 
 
 def _workspace(x: torch.Tensor, stream: int, batch: int, floats: int):
     """(tickets, partial) for a launch on ``stream`` of x's device with
     ``batch`` problems and ``floats`` partial values."""
-    key = (x.device.index, stream)
-    tickets, partial = ws = _workspaces.get(key, (None, None))
-    if tickets is None or tickets.numel() < batch:
-        tickets = torch.zeros(max(batch, 64), dtype=torch.int32, device=x.device)
-    if partial is None or partial.numel() < floats:
-        partial = torch.empty(max(floats, 1 << 16), dtype=torch.float32, device=x.device)
-    if ws[0] is not tickets or ws[1] is not partial:
-        _workspaces[key] = (tickets, partial)
-    return tickets, partial
+    return kernels.workspace(x, stream, "ndt", batch, floats)
 
 
 def derivatives(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor, idx: torch.Tensor,

@@ -179,6 +179,54 @@ def test_device_ops_per_call_counts_device_events(monkeypatch):
     assert [e.name for e in chip_smoke.device_events(prof)] == ["k", "memset"]
 
 
+def test_device_ops_per_call_retakes_partial_traces(monkeypatch):
+    """A trace that lost some of its calls' device events is taken again
+    (dropped events only lower the count); a call of two operations reads
+    2.0 at once; a trace short every time is returned as it is."""
+    traces = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.evs = []
+
+        def __enter__(self):
+            traces.append(self)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self.evs
+
+    def call(kernels):
+        def fn():
+            if traces:
+                traces[-1].evs += [_Ev(k, 0, 1, True) for k in kernels]
+        return fn
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    real_exit = FakeProfile.__exit__
+    kept = iter([4, 7])  # the first two traces keep 4 and 7 of 10 events
+
+    def exit_losing(self, *exc):
+        n = next(kept, None)
+        if n is not None:
+            self.evs = self.evs[:n]
+        return real_exit(self, *exc)
+
+    monkeypatch.setattr(FakeProfile, "__exit__", exit_losing)
+    assert chip_smoke.device_ops_per_call(call(["radius_count_kernel"]), pad_s=0.0) == (1.0, ["radius_count_kernel"])
+    assert len(traces) == 3
+    traces.clear()
+    assert chip_smoke.device_ops_per_call(call(["k", "memset"]), pad_s=0.0) == (2.0, ["k", "memset"])
+    assert len(traces) == 1
+    traces.clear()
+    kept = iter([3] * 5)
+    assert chip_smoke.device_ops_per_call(call(["k"]), pad_s=0.0, tries=5)[0] == 0.3 and len(traces) == 5
+
+
 def test_ndt_trial_poses_halve_along_the_newton_direction():
     """ndt_trial_poses: trial l is the step 0.1 / 2^l along the Newton
     direction of (g, H), left-multiplied onto the pose, for each problem."""
@@ -269,6 +317,96 @@ def test_check_radius_gates_plain_counts(monkeypatch, case):
     monkeypatch.setattr(knn, "radius_count", lambda q_, t_, r_: knn.radius_count_plain(q_, t_, r_) + 1)
     with pytest.raises(RuntimeError):
         chip_smoke.check_radius(knn, q, t, r, rows, "broken", exact_ties=exact)
+
+
+def test_check_radius_gates_the_tested_tiles(monkeypatch):
+    """check_radius records the tile pairs radius_count tested and fails
+    when they are not the ones radius_tile_plan names."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    q, t, rows = clouds(7, n=300, m=900)
+    row = chip_smoke.check_radius(knn, q, t, 12.0, rows, "uniform")
+    plan = knn.radius_tile_plan(q, t, 12.0)
+    assert (row["tile_pairs"], row["tiles_full"], row["tiles_point"]) == (plan.numel(), int((plan == 2).sum()),
+                                                                          int((plan == 1).sum()))
+    assert row["repeat_identical"] and row["stats_call_identical"] and 0.0 < row["tested_share"] < 1.0
+    assert row["own_boxes_identical"]
+    tiles = knn.radius_count_tiles
+    monkeypatch.setattr(knn, "radius_count_tiles", lambda *a, **k: dict(tiles(*a, **k), full=0))
+    with pytest.raises(RuntimeError, match="tested tile pairs"):
+        chip_smoke.check_radius(knn, q, t, 12.0, rows, "broken")
+
+
+@pytest.mark.parametrize("broken", ["counts", "tiles"])
+def test_check_radius_gates_the_lanes_own_boxes(monkeypatch, broken):
+    """check_radius fails when the launch whose lanes compute their tiles'
+    boxes themselves (the kernel's fallback path) counts otherwise or tests
+    other tile pairs than the launch that reads the table."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    q, t, rows = clouds(9, n=300, m=900)
+    tiles = knn.radius_count_tiles
+
+    def own_broken(*a, own_boxes=False):
+        got = tiles(*a)
+        if own_boxes:
+            got = dict(got, counts=got["counts"] + 1) if broken == "counts" else dict(got, point=got["point"] + 1)
+        return got
+
+    monkeypatch.setattr(knn, "radius_count_tiles", own_broken)
+    with pytest.raises(RuntimeError, match="own boxes"):
+        chip_smoke.check_radius(knn, q, t, 12.0, rows, "broken")
+
+
+def test_radius_bounds_count_valid_and_tested_pairs():
+    """The pairs tested (32 x 32 a full tile pair, 32 a point test) or the
+    bytes bound the kernel; the valid pairs' operations give the figure
+    beside it, which tile skipping takes the kernel under."""
+    row = dict(n=4096, m=4096, valid=3572, tiles_full=442, tiles_point=2400)
+    b = chip_smoke.radius_bounds(row, 66.9e12)
+    assert b["valid_pairs"] == 3572**2 and b["tested_pairs"] == 442 * 1024 + 2400 * 32
+    assert b["bound_by"] == "operations" and b["bound_ms"] == pytest.approx(b["tested_pairs"] * 10 / 66.9e12 * 1e3)
+    assert b["valid_pairs_bound_by"] == "operations" and b["valid_pairs_bound_ms"] == pytest.approx(
+        3572**2 * 10 / 66.9e12 * 1e3)
+    assert b["bound_ms"] < b["valid_pairs_bound_ms"]
+    tiny = chip_smoke.radius_bounds(dict(row, tiles_full=0, tiles_point=0), 66.9e12)
+    assert tiny["bound_by"] == "bytes" and tiny["bound_ms"] == pytest.approx(
+        4096 * 28 / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_radius_frame_is_the_presets_downsampled_cloud():
+    """radius_frame hands radius_count what the preset's RADIUS filter
+    does: its prefilter's cloud before the outlier removal, padded at
+    PAD_COORD, and the preset's radius; the full prefilter keeps a subset."""
+    from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
+    from hdl_graph_slam_tpu_torch.core.config import PRESETS
+    from hdl_graph_slam_tpu_torch.frontend import Prefilter
+
+    scan = chip_smoke._golden_scan(chip_smoke.RADIUS_FRAME)
+    for preset, radius in zip(chip_smoke.RADIUS_PRESETS, (0.8, 0.5)):
+        x, rows, r = chip_smoke.radius_frame(scan, preset, device="cpu")
+        assert x.shape == (16384, 3) and r == radius and (x[~rows] == cloudlib.PAD_COORD).all()
+        kept = Prefilter(PRESETS[preset]().prefilter, out_capacity=16384, device="cpu")(
+            cloudlib.from_numpy(scan, device="cpu")).mask
+        assert torch.equal(kept & rows, kept) and 0.9 * int(rows.sum()) < int(kept.sum()) < int(rows.sum())
+
+
+def test_check_ndt_search_passes_the_plain_association(monkeypatch):
+    """check_ndt_search on the CPU (both sides the plain twin): no row
+    differs, found pairs counted, and a broken association fails it."""
+    from hdl_graph_slam_tpu_torch.core import cloud as cloudlib
+    from hdl_graph_slam_tpu_torch.registration import ndt
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-5, 5, (3000, 3)).astype(np.float32)
+    tgt = ndt.preprocess_target(cloudlib.from_numpy(pts, capacity=4096, device="cpu"), 2.0, max_voxels=1024,
+                                grid_size=32)
+    src = cloudlib.from_numpy(pts[:1000] + 0.05, capacity=1024, device="cpu")
+    row = chip_smoke.check_ndt_search(tgt, src, 2.0, "DIRECT7", "t")
+    assert row["rows_differ"] == 0 and row["found_pairs"] > 0 and row["repeat_identical"]
+    plain = ndt.associate_plain
+    monkeypatch.setattr(ndt, "associate", lambda *a: (plain(*a)[0] + 1, plain(*a)[1]))
+    with pytest.raises(RuntimeError, match="key-search"):
+        chip_smoke.check_ndt_search(tgt, src, 2.0, "DIRECT7", "t")
 
 
 def test_exact_radius_counts_flags_pairs_at_the_radius():

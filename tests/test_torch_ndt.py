@@ -202,6 +202,27 @@ def test_association_and_scores_match_jax(method):
     assert np.argmin(trial) == np.argmin(trial_j)
 
 
+@pytest.mark.parametrize("method", ["DIRECT7", "DIRECT1"])
+def test_association_key_search_matches_jax(method):
+    """The association's key-search branch (targets without a dense grid,
+    lookup_voxels' binary search) equals JAX's _gather_cells, indices and
+    flags, at the pose off the truth and at one that moves part of the
+    source out of the target's cells."""
+    tgt_pts, src_pts, _ = tgt_and_src()
+    tj, tp = both_targets(tgt_pts, grid_size=0)
+    assert tj.grid is None and tp.grid is None
+    src_j = jcloud.from_numpy(src_pts)
+    src = cloud.from_numpy(src_pts, device="cpu")
+    for twist in ([0.2, -0.1, 0.03, 0.01, 0.02, 0.05], [6.0, -4.0, 1.0, 0.0, 0.0, 0.3]):
+        T = np.asarray(jse3.se3_exp(jnp.asarray(twist, jnp.float32)))
+        moved_j = jse3.transform_points(jnp.asarray(T), src_j.xyz)
+        idx_j, found_j = jndt._gather_cells(tj, moved_j, src_j.mask, jvoxel.neighbor_offsets(method))
+        idx, found = ndt.associate(tp, src.xyz[None], src.mask[None], torch.from_numpy(T.copy())[None], method)
+        np.testing.assert_array_equal(idx[0].numpy(), np.asarray(idx_j))
+        np.testing.assert_array_equal(found[0].numpy(), np.asarray(found_j))
+        assert 0 < int(found.sum()) < found.numel()
+
+
 def test_kdtree_association_matches_jax():
     """KDTREE: the 8 nearest cell means within the resolution, as the JAX
     knn_approx (exact on the CPU) finds them."""

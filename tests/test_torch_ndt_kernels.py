@@ -64,6 +64,21 @@ def test_cuda_source_has_one_launch_per_reduction_and_no_float_atomics():
         assert re.findall(r"(\w+)<<<(dim3\([^)]*\))", body) == [(kernel, "dim3(nblk, batch)")]
 
 
+def test_association_runs_one_pair_a_thread():
+    """The association launches once over the reductions' pair grid,
+    blocks_for(n K) x B blocks of kThreads, its kernel instantiated for K =
+    1 and 7, each thread one (point, cell) pair writing its own idx and
+    found entry."""
+    src = source()
+    body = re.search(r"int hgs_ndt_associate\(.*?\n\}", src, re.S).group(0)
+    assert "const dim3 grd(blocks_for(n * K), batch);" in body
+    assert re.findall(r"(ndt_associate_kernel<\d>)<<<grd, kThreads,", body) == [
+        "ndt_associate_kernel<7>", "ndt_associate_kernel<1>"]
+    kernel = re.search(r"ndt_associate_kernel\(.*?\n\}", src, re.S).group(0)
+    assert "const int i = t / K, k = t - i * K;" in kernel
+    assert "idx_out[pair] = id;" in kernel and "found_out[pair] = f;" in kernel and "for (int k = 0" not in kernel
+
+
 def pair_terms(d1, d2, p, mu, icov):
     """One (point, cell) pair's share of g (6,), H (6, 6) and the score, as
     the derivative kernel adds it, in float64."""
