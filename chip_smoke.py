@@ -65,6 +65,13 @@ before the last line:
            path's shapes: golden_town frames 0 and 1 through the imu
            preset's prefilter at 16384 rows, the target at 10 m cells with
            max_voxels 16384, DIRECT7.
+   vgicp_kernels  (early too) the FAST_VGICP target of bench frame 0 at
+           1.0 m voxels with its 256³ grid: preprocess_target twice on the
+           card bit for bit, and against the same cloud's target on the CPU;
+           the DIRECT1 association ndt_associate_kernel<1> over its voxels
+           (ndt.associate_cells), through the grid and the key search,
+           against the plain twin off cell faces (float64 face rule), again
+           bit for bit, one device operation a call; timed beside its bound.
 4. main    bench.py's windowed FAST_GICP odometry (its configs, its course
            with seed 0, 16384-row raw scans, 8192-row filtered clouds) through
            the port's OdometryWindow on cuda, with bench.py's gates; kernel
@@ -82,6 +89,16 @@ before the last line:
            operations and idle share over 16 traced frames. ndt_kdtree: its
            first 32 frames with KDTREE (knn_select at k = 8), the final x
            within 0.1 m of ndt_main's at frame 32 instead of the 3%.
+   vgicp_main  the same course through the window with FAST_VGICP at 1.0 m
+           (benchmarks/r3_method_window.py:51), bench.py's gates, the
+           association and knn_select launched at least once a frame, and
+           the x at frame 64 within VGICP_WITNESS's tolerance of the JAX
+           package's on the CPU (tools/method_witness.py). icp_main: ICP
+           over the same 256 frames, nn1 once a frame at least, the x and
+           converged share at frame 64 against the JAX run; not gated on
+           the 3% (the reference's point-to-point ICP drifts ~10.6% here,
+           PERF_JAX_REFERENCE.md:300). icp_reciprocal: 32 frames with
+           reciprocal correspondences (nn1_batched's back query).
 5. golden_course  benchmarks/golden_town.py's 601 ray-cast town scans, cast
            in a process pool (the script's, not the package's).
 6. kernel_batched  the batched kernels (nn1_batched, knn_select_batched) at
@@ -98,10 +115,20 @@ before the last line:
            vertical and 0.05 m of the 1.8 m sensor height; RANSAC's
            (4096, 3) x (3, 1024) fp32 product and its whole scoring timed
            beside their bounds (fit_plane_bounds).
+   loop_methods  the loop detector's batched match with FAST_VGICP and with
+           ICP: golden_town frame 300 and 8 candidate frames around it,
+           _match_batched against _match_sequential on the card (transforms
+           within 1e-4 m, the same flags), a repeat bit for bit, the batch of
+           one bit for bit the unbatched align; ms, host syncs and device
+           operations a match.
 7. graph   the port's dense LM pose-graph optimize on a golden-sized
            synthetic graph (94 poses, 2 laps, 12 loop edges) in float64 on
            the card against the same code on the CPU; ms per iteration on
-           both and the device operations per iteration (profiled).
+           both and the device operations per iteration (profiled). Then
+           linear_solver "pcg" and "schur" (graph_solvers) on a 20-pose
+           chain with a floor plane and on the golden-sized ring with the
+           floor plane as a landmark: card against CPU (1e-6 m) and against
+           the dense solve (1e-5 m), a repeat bit for bit.
 8. slam    golden_town "base" through SlamPipeline.run_windowed on the
            card: all 601 frames, keyframes, loop edges, ATE (optimized and
            odometry keyframes, Umeyama-aligned as golden_town.py:179-180),
@@ -156,8 +183,10 @@ before the last line:
            synchronous run over 48 frames (odometry within 1e-6 m, final
            poses within 1e-2 m), the wall time of both.
 13. The kernels line (every kernel entry point, with the cli path's
-   launches; the NDT kernels with ndt_main's and imu's, knn_select k = 8
-   with ndt_kdtree's), the card's name and power limit, then the last line
+   launches; the NDT kernels with ndt_main's and imu's, ndt_associate
+   also with vgicp_main's and its K = 1 shape, knn_select k = 8 with
+   ndt_kdtree's; nn1, knn_select and the batched kernels with this slice's
+   VGICP, ICP and loop paths), the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
 Phases run in that order, every one on the card.
@@ -179,6 +208,7 @@ import time
 import warnings
 from collections import defaultdict
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -248,7 +278,8 @@ NDT_SCORE_RTOL = 1e-5
 # (190); the score's q, B q, q.a and exp (28) and its transform (18)
 NDT_DERIV_OPS_PER_PAIR, NDT_DERIV_OPS_PER_POINT = 67, 190
 NDT_SCORE_OPS_PER_PAIR, NDT_SCORE_OPS_PER_POINT = 28, 18
-NDT_COUNTERS = ("associate", "derivatives", "trial_scores")  # registration/ndt.py wrappers
+# registration/ndt.py wrappers: the kernels line's name -> the wrapper that counts its launches
+NDT_COUNTERS = {"associate": "associate_cells", "derivatives": "derivatives", "trial_scores": "trial_scores"}
 # benchmarks/r3_method_window.py:46-54, the NDT row
 NDT_MAIN_REG = dict(registration_method="NDT_OMP", reg_resolution=2.0, reg_nn_search_method="DIRECT7",
                     reg_reassoc_displacement=0.5)
@@ -270,6 +301,48 @@ IMU_REQUIRED = ("ndt_associate", "ndt_derivatives", "ndt_trial_scores", "radius_
 # ATE by 0.05 m, four times that largest pose difference.
 IMU_JAX_ATE_ODOM_M = 8.325281271492258
 IMU_ATE_SLACK_M = 0.05
+# FAST_VGICP and ICP (registration/vgicp.py, icp.py): benchmarks/
+# r3_method_window.py:51,53's rows, with bench_configs()'s prefilter
+VGICP_MAIN_REG = dict(registration_method="FAST_VGICP", reg_resolution=1.0)
+ICP_MAIN_REG = dict(registration_method="ICP")
+ICP_RECIPROCAL_FRAMES = 32
+# tools/method_witness.py --frames 64 (JAX_PLATFORMS=cpu): the JAX
+# package's window on the CPU over the bench course's first 64 frames, the
+# x of frame 64 and the share converged. The port on the CPU gave VGICP
+# 5.138615608 (4.8e-7 from JAX's), its poses within 6.9e-4 of JAX's over
+# the prefix, so the card is held to 2e-3 (the cut-cloud windows'
+# tolerance, tests/test_torch_window.py). ICP: 4.739522457 (1.7e-4 from
+# JAX's), poses within 9.1e-3 (ICP stops at steps below 0.01, and on this
+# straight street its x swings by up to 1 m frame to frame, the chain
+# compounding where each frame stops); the card is held to 0.05 m, about
+# five times that, and to JAX's converged share within 0.05.
+VGICP_WITNESS = dict(prefix=64, jax_x=5.13861608505249, x_atol=2e-3)
+ICP_WITNESS = dict(prefix=64, jax_x=4.739689826965332, x_atol=0.05, jax_converged_fraction=1.0, converged_atol=0.05)
+# --reciprocal-frames 32: JAX 3.306628942489624, the port on the CPU
+# 3.302157402 (4.5e-3 apart), poses within 0.0496 of each other (the back
+# query drops pairs at its nearest-neighbour ties, where a last bit decides);
+# the card is held to 0.25 m, five times that
+ICP_RECIPROCAL_WITNESS = dict(prefix=ICP_RECIPROCAL_FRAMES, jax_x=3.306628942489624, x_atol=0.25,
+                              jax_converged_fraction=1.0, converged_atol=0.05)
+# ICP frames of ~4500 device operations each: 4 traced frames, not 16 (the
+# profiler's own cost, ~2.5 s a frame, is the phase's largest part)
+ICP_TRACED_FRAMES = 4
+# vgicp_kernels, preprocess_target card vs CPU on one cloud: voxel sums in
+# row order on both (float32, rounding only); every voxel covariance within
+# test_torch_gicp.py's every-row bound on the point covariances (their
+# closed-form eigenvectors amplify the float32 rounding of the k = 20 sums
+# by 1/gap; the share within 1e-4 is reported beside it)
+VGICP_MEAN_ATOL_M = 1e-5
+VGICP_COV_ATOL = 1e-3
+# loop_methods: golden_town frame 300 and 8 frames around it (1.2 m apart)
+LOOP_TARGET_FRAME = 300
+LOOP_CANDIDATE_OFFSETS = (-12, -9, -6, -3, 3, 6, 9, 12)
+LOOP_MATCH_ATOL_M = 1e-4
+# graph: PCG and Schur against the dense solve (tests/test_graph.py)
+GRAPH_SOLVER_VS_DENSE_M = 1e-5
+# PCG on the golden-sized ring, not gated against the CPU and the dense
+# solve (its CG does not converge there): LM iterations of its run
+GRAPH_RING_PCG_ITERATIONS = 8
 
 
 T0 = time.perf_counter()
@@ -619,11 +692,14 @@ def check_batched(knn, kind: str, q, t, rows, what: str) -> dict:
     return row
 
 
-def synthetic_graph(seed: int = 0):
+def synthetic_graph(seed: int = 0, floor: bool = False):
     """A golden_town-sized pose graph (port GraphBuilder): an anchor, 94
     poses on two laps of a 35 m circle with noisy odometry edges
     (information 100), 12 lap-2 -> lap-1 loop edges (information 400,
-    Huber), numpy noise from ``seed``."""
+    Huber), numpy noise from ``seed``; with ``floor``, also the floor
+    plane 1.8 m below the poses (z = -1.8) as a landmark seen from every
+    pose through se3_plane edges (information 10, noise 0.01), as
+    HdlGraphSlam adds them (hdl_graph_slam_nodelet.cpp:490-498)."""
     from hdl_graph_slam_tpu_torch.graph import GraphBuilder
 
     rng = np.random.default_rng(seed)
@@ -660,6 +736,47 @@ def synthetic_graph(seed: int = 0):
     for k in rng.choice(np.arange(per_lap + 2, n), 12, replace=False):
         rel = np.linalg.inv(pose(k)) @ pose(k - per_lap) @ noise(0.02, 0.002)
         g.add_se3_edge(ids[k], ids[k - per_lap], rel, np.eye(6) * 400.0, kernel="Huber", kernel_delta=1.0)
+    if floor:
+        plane = g.add_plane_node([0.0, 0.0, 1.0, 1.8])
+        for k in range(n):
+            n_local = pose(k)[:3, :3].T @ np.array([0.0, 0.0, 1.0]) + rng.normal(0.0, 0.01, 3)
+            n_local /= np.linalg.norm(n_local)
+            g.add_se3_plane_edge(ids[k], plane, np.concatenate([n_local, [1.8 + rng.normal(0.0, 0.01)]]),
+                                 np.eye(3) * 10.0)
+    return g
+
+
+def chain_graph(seed: int = 11):
+    """tests/test_graph.py TestPcgSolver's graph (port GraphBuilder): 20
+    poses 1 m apart, the first fixed, noisy odometry edges (information
+    50) and one loop edge (information 100), with the floor plane of
+    synthetic_graph(floor=True) seen from every pose. Jacobi-preconditioned
+    CG resolves it within its 250 iterations; the golden-sized ring of
+    synthetic_graph, whose bending modes leave its damped H near 1e-6 at
+    the bottom of the spectrum, it does not."""
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.graph import GraphBuilder
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = GraphBuilder()
+    ids = [g.add_se3_node(np.eye(4), fixed=True)]
+    est = np.eye(4)
+    for k in range(1, 20):
+        rel = np.eye(4)
+        rel[0, 3] = 1.0
+        twist = np.concatenate([rng.normal(0, 0.02, 3), rng.normal(0, 0.01, 3)])
+        rel_noisy = rel @ se3.se3_exp(torch.from_numpy(twist)).numpy()
+        est = est @ rel_noisy
+        ids.append(g.add_se3_node(est))
+        g.add_se3_edge(ids[k], ids[k - 1], np.linalg.inv(rel_noisy), np.eye(6) * 50.0)
+    loop = np.eye(4)
+    loop[0, 3] = 19.0
+    g.add_se3_edge(ids[-1], ids[0], np.linalg.inv(loop), np.eye(6) * 100.0)
+    plane = g.add_plane_node([0.0, 0.0, 1.0, 1.8])
+    for i in ids:
+        n_local = np.array([0.0, 0.0, 1.0]) + rng.normal(0.0, 0.01, 3)
+        g.add_se3_plane_edge(i, plane, np.concatenate([n_local / np.linalg.norm(n_local), [1.8]]), np.eye(3) * 10.0)
     return g
 
 
@@ -911,6 +1028,64 @@ def graph_phase() -> None:
     require(abs(row["chi2_after_cuda"] - row["chi2_after_cpu"]) <= GRAPH_CHI2_RTOL * abs(row["chi2_after_cpu"]),
             "graph: card vs CPU chi2 differ")
     require(row["chi2_after_cuda"] < row["chi2_before"], "graph: the solve did not lower chi2")
+    graph_solvers()
+
+
+def graph_solvers() -> None:
+    """linear_solver "pcg" and "schur" in float64, each on the card and the
+    CPU, on chain_graph() and on synthetic_graph(0, floor=True) (a
+    golden-sized ring with the floor plane a landmark and its se3_plane
+    edges). Gates: the card against the CPU (poses within GRAPH_POSE_ATOL)
+    and against the card's dense solve (GRAPH_SOLVER_VS_DENSE_M), a repeat
+    on the card bit for bit (PCG's products scatter-add through
+    index_put_'s accumulation), chi2 lowered. On the ring PCG's 250 Jacobi
+    CG iterations do not resolve the bending modes, so there it is gated on
+    the repeat and chi2 alone, its distances to the CPU and the dense solve
+    reported. ms per LM iteration and host syncs a solve."""
+    import torch
+    from hdl_graph_slam_tpu_torch.graph import linearize, optimize
+
+    for name, g in (("chain", chain_graph()), ("golden_floor", synthetic_graph(0, floor=True))):
+        dense, _ = optimize(g.freeze(dtype=torch.float64, device="cuda"), max_iterations=60)
+        dense_poses = dense.poses.cpu().numpy()
+        # the spectrum of the free-dof H at the start (CPU, float64): what CG's iterations face
+        data = g.freeze(dtype=torch.float64, device="cpu")
+        H, _, _, _ = linearize.build_system(data)
+        free_f = linearize.free_dof_mask(data).double()
+        eig = torch.linalg.eigvalsh(H * free_f[:, None] * free_f[None, :] + torch.diag(1.0 - free_f))
+        spectrum = dict(h_min_eig=float(eig.min()), h_max_eig=float(eig.max()))
+        for solver in ("pcg", "schur"):
+            optimize(g.freeze(dtype=torch.float64, device="cuda"), max_iterations=1, linear_solver=solver)  # warm-up
+            gated = not (name == "golden_floor" and solver == "pcg")
+            its = 60 if gated else GRAPH_RING_PCG_ITERATIONS
+
+            def solve(dev):
+                data = g.freeze(dtype=torch.float64, device=dev)
+                t0 = time.perf_counter()
+                out, st = optimize(data, max_iterations=its, linear_solver=solver)
+                return out.poses.cpu().numpy(), out.planes.cpu().numpy(), st, time.perf_counter() - t0
+
+            pc, lc, sc, tc = solve("cuda")
+            (pc2, lc2, _, _), syncs = count_host_syncs(lambda: solve("cuda"))  # the repeat, its host syncs
+            pp, lp, sp, tp = solve("cpu")
+            row = dict(phase="graph", graph=name, solver=solver, poses=len(g.poses), planes=len(g.planes),
+                       edges=g.num_edges, iterations_cuda=int(sc.iterations), iterations_cpu=int(sp.iterations),
+                       chi2_before=float(sc.chi2_robust_before), chi2_after_cuda=float(sc.chi2_robust_after),
+                       chi2_after_cpu=float(sp.chi2_robust_after), pose_max_abs_err=float(np.abs(pc - pp).max()),
+                       plane_max_abs_err=float(np.abs(lc - lp).max()),
+                       vs_dense_max_abs_err=float(np.abs(pc - dense_poses).max()),
+                       repeat_identical=bool(np.array_equal(pc, pc2) and np.array_equal(lc, lc2)),
+                       seconds_cuda=tc, seconds_cpu=tp, ms_per_iteration_cuda=1e3 * tc / max(int(sc.iterations), 1),
+                       host_syncs_per_solve=syncs, gated_against_cpu_and_dense=gated, **spectrum,
+                       pose_atol=GRAPH_POSE_ATOL,
+                       vs_dense_atol=GRAPH_SOLVER_VS_DENSE_M)
+            emit(row)
+            what = f"graph {name} {solver}"
+            if gated:
+                require(row["pose_max_abs_err"] <= GRAPH_POSE_ATOL, f"{what}: card vs CPU poses: {row}")
+                require(row["vs_dense_max_abs_err"] <= GRAPH_SOLVER_VS_DENSE_M, f"{what}: vs the dense solve: {row}")
+            require(row["repeat_identical"], f"{what}: a repeat on the card differs")
+            require(row["chi2_after_cuda"] < row["chi2_before"], f"{what}: the solve did not lower chi2")
 
 
 def slam_profile(pipe, frames) -> None:
@@ -1311,8 +1486,8 @@ def reset_launches(knn) -> None:
     for name in LAUNCH_COUNTERS:
         getattr(knn, name).launches = 0
     knn.knn_select.launches_k = dict.fromkeys(knn.KNN_SELECT_KS, 0)
-    for name in NDT_COUNTERS:
-        getattr(_ndt(), name).launches = 0
+    for attr in NDT_COUNTERS.values():
+        getattr(_ndt(), attr).launches = 0
 
 
 def format_launches(counts: dict, per_k: dict) -> dict:
@@ -1329,7 +1504,7 @@ def format_launches(counts: dict, per_k: dict) -> dict:
 def launch_counts(knn) -> dict:
     """The raw counters format_launches reads."""
     counts = {name: getattr(knn, name).launches for name in LAUNCH_COUNTERS}
-    counts.update({f"ndt_{name}": getattr(_ndt(), name).launches for name in NDT_COUNTERS})
+    counts.update({f"ndt_{name}": getattr(_ndt(), attr).launches for name, attr in NDT_COUNTERS.items()})
     return counts
 
 
@@ -1732,6 +1907,164 @@ def ndt_kernels_phase(knn, clouds, peak_flops: float) -> dict:
     return timed
 
 
+def vgicp_kernels_phase(clouds, peak_flops: float) -> dict:
+    """The VGICP target and its association on bench frames 0 (target) and
+    1 (source, at check_ndt's pose), vgicp_main's 1.0 m voxels and 256³
+    grid: preprocess_target on the card twice, bit for bit, and against the
+    same cloud's target on the CPU (keys, mask, origin and grid identical,
+    means within VGICP_MEAN_ATOL_M, covariances within VGICP_COV_ATOL);
+    the DIRECT1 association (ndt.associate_cells, ndt_associate_kernel<1>)
+    through the dense grid and through the key search, each against its
+    plain twin with rows identical off cell faces (float64 face rule) and
+    called again bit for bit, the dense-grid call one device operation of
+    that kernel; both timed, the dense-grid call beside its bound. Returns
+    the timed dense-grid row."""
+    import types
+
+    import torch
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.core.cloud import PointCloud
+    from hdl_graph_slam_tpu_torch.ops import voxel
+    from hdl_graph_slam_tpu_torch.registration import vgicp
+
+    ndt = _ndt()
+    res = VGICP_MAIN_REG["reg_resolution"]
+    G = voxel.dense_grid_size_for(res)
+    tgt_cloud, src = clouds[0][0], clouds[1][0]
+
+    def make(c):
+        return vgicp.preprocess_target(c, res, max_voxels=N_KERNEL, grid_size=G)
+
+    tgt, again = make(tgt_cloud), make(tgt_cloud)
+    tgt_cpu = make(PointCloud(xyz=tgt_cloud.xyz.cpu(), mask=tgt_cloud.mask.cpu()))
+    torch.cuda.synchronize()
+    fields = ("keys", "means", "covs", "mask", "origin", "grid")
+    m = tgt_cpu.mask
+    cov_rows = (tgt.covs.cpu()[m] - tgt_cpu.covs[m]).abs().flatten(1).amax(1)
+    row = dict(phase="vgicp_kernels", case="preprocess_target", resolution=res, grid=G, voxels=int(m.sum()),
+               repeat_identical=all(torch.equal(getattr(tgt, f), getattr(again, f)) for f in fields),
+               structure_identical=all(torch.equal(getattr(tgt, f).cpu(), getattr(tgt_cpu, f))
+                                       for f in ("keys", "mask", "origin", "grid")),
+               mean_max_abs_err_m=float((tgt.means.cpu()[m] - tgt_cpu.means[m]).abs().max()),
+               cov_max_abs_err=float(cov_rows.max()), cov_share_within_1e4=float((cov_rows <= 1e-4).double().mean()),
+               ms=time_ms(lambda: make(tgt_cloud), reps=5, batches=3))
+    emit(row)
+    require(row["repeat_identical"], f"vgicp preprocess_target: a repeat differs: {row}")
+    require(row["structure_identical"] and row["mean_max_abs_err_m"] <= VGICP_MEAN_ATOL_M
+            and row["cov_max_abs_err"] <= VGICP_COV_ATOL, f"vgicp preprocess_target: card vs CPU: {row}")
+
+    xyz, mask = src.xyz[None].contiguous(), src.mask[None].contiguous()
+    T = se3.se3_exp(torch.tensor(NDT_TWISTS[:1], device="cuda"))
+    _, near = near_faces(src.xyz.cpu().numpy(), T[0].cpu().numpy(), res)
+    face = torch.from_numpy(near.any(1)).to("cuda") & src.mask
+    timed = None
+    for case, grid in (("dense_grid", tgt.grid), ("key_search", None)):
+        def fn(grid=grid):
+            return ndt.associate_cells(tgt, grid, xyz, mask, T, "DIRECT1")
+
+        def plain(grid=grid):
+            return ndt.associate_cells_plain(tgt, grid, xyz, mask, T, "DIRECT1")
+
+        (ik, fk), (ip, fp), rep = fn(), plain(), fn()
+        torch.cuda.synchronize()
+        differ = ((ik != ip) | (fk != fp)).any(-1)[0]
+        w = ndt_work(types.SimpleNamespace(voxels=tgt, grid=tgt.grid), xyz, mask, T, ik, fk, "DIRECT1")
+        r = dict(phase="vgicp_kernels", kernel="ndt_associate", case=case, resolution=res, method="DIRECT1",
+                 voxels=int(m.sum()), face_rows=int(face.sum()), rows_differ=int(differ.sum()),
+                 rows_differ_off_face=int((differ & ~face).sum()), max_abs_err=float((differ & ~face).sum()),
+                 repeat_identical=bool(torch.equal(rep[0], ik) and torch.equal(rep[1], fk)), **w)
+        if case == "dense_grid":
+            r["device_ops_per_call"] = device_ops_per_call(fn)
+            r["bound_ms"], r["bound_by"] = ndt_bounds("ndt_associate", w, peak_flops)
+        r.update(time_rows(fn, plain))
+        emit(r)
+        require(r["rows_differ_off_face"] == 0 and r["repeat_identical"], f"vgicp association {case}: {r}")
+        if case == "dense_grid":
+            ops, names = r["device_ops_per_call"]
+            require(ops == 1.0 and len(names) == 1 and "ndt_associate_kernel" in names[0],
+                    f"vgicp association: a call is not one launch of ndt_associate_kernel: {r['device_ops_per_call']}")
+            timed = r
+    return timed
+
+
+def loop_methods_phase(golden) -> dict:
+    """The loop detector's batched match with FAST_VGICP and ICP on the
+    card: golden_town frame LOOP_TARGET_FRAME as the new keyframe and the
+    LOOP_CANDIDATE_OFFSETS frames around it as GOLDEN_B candidates (the
+    golden prefilter at its 4096 rows), guesses from the truth z-flattened
+    as loop_detector.hpp:139-146 makes them, the golden config's loop
+    registration with the method swapped. Gates: _match_batched against
+    _match_sequential, transforms within LOOP_MATCH_ATOL_M and the same
+    converged flags; the batch of one bit for bit the unbatched align of
+    that candidate. Times one batched match and counts its host syncs and
+    device operations. Returns the launches of the batched matches."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hdl_graph_slam_tpu_torch.backend.loop_detector import LoopDetector
+    from hdl_graph_slam_tpu_torch.core.cloud import PointCloud
+    from hdl_graph_slam_tpu_torch.ops import knn
+    from hdl_graph_slam_tpu_torch.registration import factory
+    from hdl_graph_slam_tpu_torch.utils import course
+
+    truth = golden["truth"]
+    frames = [LOOP_TARGET_FRAME + o for o in LOOP_CANDIDATE_OFFSETS]
+    target = golden_cloud(golden["scans"][LOOP_TARGET_FRAME])
+    sources = [golden_cloud(golden["scans"][i]) for i in frames]
+    guesses = []
+    for i in frames:
+        g = np.linalg.inv(truth[LOOP_TARGET_FRAME]) @ truth[i]
+        g[2, 3] = 0.0
+        guesses.append(g)
+    out = {}
+    for method in ("FAST_VGICP", "ICP"):
+        cfg = course.golden_town_config().loop
+        cfg.registration = dataclasses.replace(cfg.registration, registration_method=method, reg_resolution=1.0)
+        det = LoopDetector(cfg)
+        reset_launches(knn)
+        sb = det._match_batched(sources, target, guesses)
+        launches = read_launches(knn)
+        ss = det._match_sequential(sources, target, guesses)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = det._match_batched(sources, target, guesses)  # the repeat, timed
+        ms = 1e3 * (time.perf_counter() - t0)
+        # the batch of one against the unbatched align of candidate 0
+        c = cfg.registration
+        tgt_state = factory.make_target(c, target, det._registration.max_voxels)
+        one = PointCloud(xyz=sources[0].xyz[None], mask=sources[0].mask[None])
+        g0 = torch.from_numpy(guesses[0]).float().cuda()
+        rb = factory.align(c, tgt_state, factory.prepare_source(c, one), g0[None])
+        ru = factory.align(c, tgt_state, factory.prepare_source(c, sources[0]), g0)
+        b1_identical = all(torch.equal(x[0], y) for x, y in zip(rb, ru))
+
+        def traced():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                det._match_batched(sources, target, guesses)
+                torch.cuda.synchronize()
+            return prof
+
+        prof, syncs = count_host_syncs(traced)
+        err = float(max(np.abs(a - b)[:3, 3].max() for a, b in zip(sb[1], ss[1])))
+        row = dict(phase="loop_methods", method=method, target_frame=LOOP_TARGET_FRAME, candidate_frames=frames,
+                   converged_batched=[bool(x) for x in sb[2]], converged_sequential=[bool(x) for x in ss[2]],
+                   fitness=[float(x) for x in sb[0]], transform_max_abs_err_m=err,
+                   rotation_max_abs_err=float(max(np.abs(a - b)[:3, :3].max() for a, b in zip(sb[1], ss[1]))),
+                   repeat_identical=all(np.array_equal(a, b) for a, b in zip(sb[1], again[1])),
+                   b1_identical=b1_identical, iterations_b1=int(rb.iterations[0]), ms_per_match=ms,
+                   host_syncs_per_match=syncs, device_ops_per_match=len(device_events(prof)), launches=launches,
+                   atol_m=LOOP_MATCH_ATOL_M)
+        emit(row)
+        require(err <= LOOP_MATCH_ATOL_M, f"loop_methods {method}: batched vs sequential transforms differ by {err}")
+        require(row["converged_batched"] == row["converged_sequential"] and any(row["converged_batched"]),
+                f"loop_methods {method}: converged flags {row['converged_batched']} vs {row['converged_sequential']}")
+        require(row["repeat_identical"], f"loop_methods {method}: a repeated batched match differs")
+        require(b1_identical, f"loop_methods {method}: the batch of one differs from the unbatched align")
+        out[method] = launches
+    return out
+
+
 def ndt_imu_case(scans, device: str = "cuda") -> tuple:
     """The imu path's NDT kernel shapes: two raw scans through the imu
     preset's prefilter at IMU_CLOUD_CAPACITY rows (no deskewing), the first
@@ -1759,25 +2092,32 @@ def ndt_imu_kernels_phase(scans, peak_flops: float) -> dict:
     return check_ndt(tgt, src, res, method, "imu", peak_flops, timed=True)
 
 
-def ndt_odometry_config(reg: dict):
-    """bench_configs()'s odometry with the NDT registration ``reg``."""
+def odometry_config(reg: dict):
+    """bench_configs()'s odometry with the registration ``reg``."""
     from hdl_graph_slam_tpu_torch.core.config import OdometryConfig, RegistrationConfig
 
     return OdometryConfig(keyframe_delta_trans=2.0, keyframe_delta_time=1e9, registration=RegistrationConfig(**reg))
 
 
-def ndt_window_phase(knn, scans, phase: str, reg: dict, frames: int, required: tuple, reference=None) -> tuple:
+def window_phase(knn, scans, phase: str, reg: dict, frames: int, required: tuple, reference=None,
+                 per_frame: tuple = (), witness: Optional[dict] = None, drift_gate: bool = True,
+                 traced: int = 16) -> tuple:
     """The bench course's first ``frames`` frames through an OdometryWindow
-    with NDT (``reg``) on the card, as main drives GICP: bench.py's gates
-    (final x within 3% of the drive, > 90% converged, det/orth < 1e-4) or,
-    given the ``reference`` poses of another NDT run over the same frames,
-    the final x within NDT_KDTREE_VS_DIRECT7_M of its x there instead of the
-    3%; fps, Newton iterations, keyframes and the launches of each kernel in
-    ``required``; then 16 traced frames (device operations and idle share)
-    and the host syncs of 16 frames. Returns (launches, poses)."""
+    with the registration ``reg`` on the card, as main drives GICP: the
+    rotation gates (det/orth < 1e-4, finite poses) and, with
+    ``drift_gate``, bench.py's (final x within 3% of the drive, > 90%
+    converged); given the ``reference`` poses of another run over the same
+    frames, the final x within NDT_KDTREE_VS_DIRECT7_M of its x there
+    instead of the 3%; given a ``witness`` (tools/method_witness.py's JAX
+    run: its prefix, x, x_atol and, if any, converged share and its
+    tolerance), the x and converged share at that prefix. Every kernel in
+    ``required`` launched, those in ``per_frame`` at least once a frame.
+    fps, LM (Newton) iterations, keyframes and launches; then ``traced``
+    traced frames (device operations and idle share) and the host syncs of
+    as many frames. Returns (launches, poses)."""
     from hdl_graph_slam_tpu_torch.utils.course import BENCH_STEP
 
-    win, first, xyz, mask, stamps = main_path(scans[:frames + 1], ndt_odometry_config(reg))
+    win, first, xyz, mask, stamps = main_path(scans[:frames + 1], odometry_config(reg))
     reset_launches(knn)
     state0, odoms, status, dt = drive_window(win, first, xyz, mask, stamps)
     launches = read_launches(knn)
@@ -1788,13 +2128,16 @@ def ndt_window_phase(knn, scans, phase: str, reg: dict, frames: int, required: t
         phase=phase, frames=frames, registration=reg, seconds=dt, fps=frames / dt, final_x=float(odoms[-1, 0, 3]),
         drive_m=dist, drift_fraction=abs(float(odoms[-1, 0, 3]) - dist) / dist, converged_fraction=float(conv.mean()),
         reference_x=None if reference is None else float(reference[frames - 1, 0, 3]),
-        newton_iterations_per_frame=float(status["iterations"].double().mean()),
+        iterations_per_frame=float(status["iterations"].double().mean()),
         keyframes=int(status["keyframe_switched"].sum()),
         det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
         orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
         launches=launches, launches_per_frame={k: v / frames for k, v in launches.items() if v},
     )
-    n = min(16, frames)
+    if witness is not None:
+        k = witness["prefix"]
+        row["witness"] = dict(witness, x=float(odoms[k - 1, 0, 3]), converged_fraction=float(conv[:k].mean()))
+    n = min(traced, frames)
     _, syncs = count_host_syncs(lambda: win.run(state0, xyz[:n], mask[:n], stamps[:n])[1].cpu())
     row["host_syncs_per_frame"] = syncs / n
     prof = profile_frames(win, state0, xyz, mask, stamps, n, dt / frames)
@@ -1802,16 +2145,27 @@ def ndt_window_phase(knn, scans, phase: str, reg: dict, frames: int, required: t
                                      "top_device", "port_kernels")})
     emit(row)
     require(bool(np.isfinite(odoms).all()), f"{phase}: non-finite pose")
-    if reference is None:
-        require(row["drift_fraction"] < 0.03, f"{phase}: final x {row['final_x']} vs drive {dist}")
-    else:
+    if reference is not None:
         ref_x = float(reference[frames - 1, 0, 3])
         require(abs(row["final_x"] - ref_x) < NDT_KDTREE_VS_DIRECT7_M,
                 f"{phase}: final x {row['final_x']} vs {ref_x} of the reference run")
-    require(row["converged_fraction"] > 0.9, f"{phase}: only {row['converged_fraction']:.0%} of frames converged")
+    elif drift_gate:
+        require(row["drift_fraction"] < 0.03, f"{phase}: final x {row['final_x']} vs drive {dist}")
+    if drift_gate:
+        require(row["converged_fraction"] > 0.9, f"{phase}: only {row['converged_fraction']:.0%} of frames converged")
+    if witness is not None:
+        w = row["witness"]
+        require(abs(w["x"] - witness["jax_x"]) <= witness["x_atol"],
+                f"{phase}: x {w['x']} at frame {witness['prefix']} vs the JAX package's {witness['jax_x']}")
+        if "jax_converged_fraction" in witness:
+            require(abs(w["converged_fraction"] - witness["jax_converged_fraction"]) <= witness["converged_atol"],
+                    f"{phase}: converged share {w['converged_fraction']} at frame {witness['prefix']} vs the JAX "
+                    f"package's {witness['jax_converged_fraction']}")
     require(row["det_err"] < 1e-4 and row["orth_err"] < 1e-4, f"{phase}: rotation drift {row['det_err']}, "
                                                                f"{row['orth_err']}")
     require(all(launches[k] >= 1 for k in required), f"{phase} path did not go through every kernel: {launches}")
+    require(all(launches[k] >= frames for k in per_frame), f"{phase}: a kernel of {per_frame} launched less than "
+                                                            f"once a frame: {launches}")
     return launches, odoms
 
 
@@ -2243,6 +2597,10 @@ def kernels_line(kres, bres, fres, nres, nimu, launches, peak_flops) -> list:
             name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=sp["replaces"],
             launches=launches["main"][name], launches_slam=launches["slam"][name], launches_cli=launches["cli"][name],
             launches_per_frame=launches["main"][name] / (BENCH_FRAMES + 1),
+            # this slice's paths: the VGICP and ICP windows, the reciprocal
+            # ICP window and the loop detector's FAST_VGICP and ICP matches
+            launches_by_method={p: launches[p][name] for p in ("vgicp_main", "icp_main", "icp_reciprocal",
+                                                              "loop_FAST_VGICP", "loop_ICP")},
             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
             host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
@@ -2264,6 +2622,8 @@ def kernels_line(kres, bres, fres, nres, nimu, launches, peak_flops) -> list:
         line.append(dict(
             name=f"{kind}_batched", route="cuda", source="hdl_graph_slam_tpu_torch/csrc/knn.cu", replaces=replaces,
             launches=launches["slam"][f"{kind}_batched"], launches_cli=launches["cli"][f"{kind}_batched"],
+            launches_by_method={p: launches[p][f"{kind}_batched"] for p in ("icp_reciprocal", "loop_FAST_VGICP",
+                                                                            "loop_ICP")},
             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
             host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=1e3 * max(ops_s, bytes_s), bound_by="operations" if ops_s >= bytes_s else "bytes",
@@ -2328,8 +2688,22 @@ def kernels_line(kres, bres, fres, nres, nimu, launches, peak_flops) -> list:
                     + (f", L={NDT_TRIALS}" if name == "ndt_trial_scores" else ""))
 
         r, q = nres[name], nimu[name]
+        extra = {}
+        if name == "ndt_associate":
+            # K = 1 over the VGICP voxels: vgicp_main's launches and shapes
+            v = nres["vgicp_associate"]
+            extra = dict(launches_vgicp_main=launches["vgicp_main"][name],
+                         launches_loop_vgicp=launches["loop_FAST_VGICP"][name],
+                         vgicp_shape=dict(shape=f"n={v['n']} ({v['valid']} valid), K=1, {v['voxels']} voxels at "
+                                                f"{v['resolution']} m", found_pairs=v["found_pairs"],
+                                          grid_reads=v["grid_reads"], max_abs_err=v["max_abs_err"],
+                                          ms=v["kernel_ms"], kernel_ms=v["kernel_ms"], device_ms=v["device_ms"],
+                                          host_ms=v["host_ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                                          bound_by=v["bound_by"], library_ms=None),
+                         replaces_vgicp="hdl_graph_slam_tpu/registration/vgicp.py:94 (_correspond, XLA) with "
+                                        "ops/voxel.py:190 lookup_dense / :110 searchsorted32")
         line.append(dict(
-            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/ndt.cu", replaces=replaces,
+            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/ndt.cu", replaces=replaces, **extra,
             launches=launches["ndt_main"][name], launches_imu=launches["imu"][name],
             launches_per_frame=launches["ndt_main"][name] / BENCH_FRAMES,
             max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
@@ -2495,6 +2869,8 @@ def main(argv=None) -> int:
     first_scans = [_golden_scan(i) for i in range(2)]
     fres = kernel_filters_phase(knn, first_scans, [c[0] for c in clouds], rng, peak_flops)
     nimu = ndt_imu_kernels_phase(first_scans, peak_flops)
+    # -- 3e. the VGICP target and its DIRECT1 association, early as well
+    nres["vgicp_associate"] = vgicp_kernels_phase(clouds, peak_flops)
 
     # -- 4. main path -------------------------------------------------------
     win, first, xyz, mask, stamps = main_path(scans)
@@ -2531,11 +2907,23 @@ def main(argv=None) -> int:
         emit(profile_frames(win, state0, xyz, mask, stamps, 16, dt / BENCH_FRAMES))
 
     # -- 4b. the bench course through the NDT window (DIRECT7), then KDTREE ------
-    launches["ndt_main"], ndt_odoms = ndt_window_phase(knn, scans, "ndt_main", NDT_MAIN_REG, BENCH_FRAMES,
-                                                       ("ndt_associate", "ndt_derivatives", "ndt_trial_scores"))
-    launches["ndt_kdtree"], _ = ndt_window_phase(
+    launches["ndt_main"], ndt_odoms = window_phase(knn, scans, "ndt_main", NDT_MAIN_REG, BENCH_FRAMES,
+                                                   ("ndt_associate", "ndt_derivatives", "ndt_trial_scores"))
+    launches["ndt_kdtree"], _ = window_phase(
         knn, scans, "ndt_kdtree", dict(NDT_MAIN_REG, reg_nn_search_method="KDTREE"), NDT_KDTREE_FRAMES,
         ("knn_select_k8", "ndt_derivatives", "ndt_trial_scores"), reference=ndt_odoms)
+
+    # -- 4c. the same course with FAST_VGICP and with ICP, held to the JAX package's run
+    launches["vgicp_main"], _ = window_phase(
+        knn, scans, "vgicp_main", VGICP_MAIN_REG, BENCH_FRAMES, ("ndt_associate", "knn_select"),
+        per_frame=("ndt_associate", "knn_select"), witness=VGICP_WITNESS)
+    launches["icp_main"], _ = window_phase(knn, scans, "icp_main", ICP_MAIN_REG, BENCH_FRAMES, ("nn1",),
+                                           per_frame=("nn1",), witness=ICP_WITNESS, drift_gate=False,
+                                           traced=ICP_TRACED_FRAMES)
+    launches["icp_reciprocal"], _ = window_phase(
+        knn, scans, "icp_reciprocal", dict(ICP_MAIN_REG, reg_use_reciprocal_correspondences=True),
+        ICP_RECIPROCAL_FRAMES, ("nn1", "nn1_batched"), per_frame=("nn1", "nn1_batched"),
+        witness=ICP_RECIPROCAL_WITNESS, drift_gate=False, traced=ICP_TRACED_FRAMES)
 
     # -- 5. golden_town course (host ray casting in a process pool) ----------
     golden = golden_course_phase()
@@ -2544,6 +2932,7 @@ def main(argv=None) -> int:
     keyframes = golden_keyframes(golden)
     bres = kernel_batched_phase(knn, golden, keyframes)
     floor_phase(keyframes, peak_flops)
+    launches.update({f"loop_{m}": v for m, v in loop_methods_phase(golden).items()})
 
     # -- 7. pose graph, card vs CPU ---------------------------------------------
     graph_phase()

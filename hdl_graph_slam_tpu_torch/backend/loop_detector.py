@@ -13,9 +13,11 @@ Where the reference aligns candidates one at a time
 power of two) and aligned together: one knn_select_batched launch for their
 covariances, one nn1 launch per LM re-association for all their points
 against the shared target, one for their fitness scores, and one host copy
-of the results. NDT candidates align in one batched ``ndt.align`` (each
-Newton step's association, derivatives and trial scores one launch for all
-of them). The GICP and NDT methods are ported; VGICP and ICP raise.
+of the results. VGICP candidates share the same covariance launch and one
+association launch per LM re-association (``ndt_associate_kernel<1>``); ICP
+candidates one nn1 launch an iteration; NDT candidates align in one batched
+``ndt.align`` (each Newton step's association, derivatives and trial scores
+one launch for all of them). Every reference method runs.
 """
 
 from __future__ import annotations

@@ -11,14 +11,15 @@ One frame step keeps its state on the device:
 - the convergence gate, transform thresholding and keyframe switch
   (:214-252) are tensor selects, so a frame reads nothing back to the host
   outside the registration loop's per-iteration flags
-  (registration/base.py, registration/ndt.py). For GICP the new target is
-  the frame's own preprocessed source, selected elementwise. NDT's target
-  (a sort, segment sums, 3x3 eigensolves and a dense-grid scatter) is
-  rebuilt only on switching frames, as the JAX lax.cond does: the frame
-  reads its switch flag to the host (one more sync a frame).
+  (registration/base.py, registration/ndt.py, registration/icp.py). For
+  GICP the new target is the frame's own preprocessed source, for ICP its
+  cloud, selected elementwise. NDT's and VGICP's voxel targets (a sort,
+  segment sums, a dense-grid scatter) are rebuilt only on switching frames,
+  as the JAX lax.cond does: the frame reads its switch flag to the host
+  (one more sync a frame).
 
-Ported: FAST_GICP / GICP and NDT / NDT_OMP; VGICP and ICP raise
-NotImplementedError.
+Every reference method runs: FAST_GICP / GICP, FAST_VGICP /
+FAST_VGICP_CUDA, ICP and NDT / NDT_OMP.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..registration import factory
 
 @dataclasses.dataclass(frozen=True)
 class OdomState:
-    tgt: object  # current keyframe, preprocessed (gicp.GicpCloud or ndt.NdtTarget)
+    tgt: object  # current keyframe, preprocessed (GicpCloud, VgicpTarget, PointCloud or NdtTarget)
     keyframe_pose: torch.Tensor  # (4,4)
     prev_trans: torch.Tensor  # (4,4) transform since keyframe
     keyframe_stamp: torch.Tensor  # ()
@@ -47,18 +48,20 @@ class OdomState:
 def make_method_fns(cfg: RegistrationConfig, max_voxels: int = 8192):
     """(preprocess_src, make_target, align) for the configured method
     (select_registration_method, src/hdl_graph_slam/registrations.cpp:22-124,
-    through registration/factory.py); ``max_voxels`` is the NDT target's
-    cell capacity. Raises for the methods the port does not have yet."""
-    factory.method_of(cfg)
+    through registration/factory.py); ``max_voxels`` is the NDT and VGICP
+    targets' cell capacity."""
     return (lambda cloud: factory.prepare_source(cfg, cloud),
             lambda cloud, src: factory.make_target(cfg, cloud, max_voxels, source=src),
             lambda tgt, src, guess: factory.align(cfg, tgt, src, guess))
 
 
 def _select(cond: torch.Tensor, a, b):
-    """Elementwise select between two dataclasses of tensors."""
-    return type(a)(**{f.name: torch.where(cond, getattr(a, f.name), getattr(b, f.name))
-                      for f in dataclasses.fields(a)})
+    """Elementwise select between two dataclasses of tensors (a field that
+    is None in both stays None)."""
+    def pick(x, y):
+        return None if x is None and y is None else torch.where(cond, x, y)
+
+    return type(a)(**{f.name: pick(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)})
 
 
 def _next_target(switch: torch.Tensor, cloud: PointCloud, src, make_tgt, tgt):

@@ -3,9 +3,11 @@
 
 Replaces g2o::SparseOptimizer + OptimizationAlgorithmLevenberg
 (GraphSLAM::optimize, src/hdl_graph_slam/graph_slam.cpp:292-321). Per
-iteration: linearization of all edge tables (linearize.py), the damped dense
-solve (H + lam I) dx = -b over the free dofs by Cholesky, the manifold
-update, and the chi2-gated accept/reject with Nielsen damping.
+iteration: linearization of all edge tables (linearize.py), the damped
+solve (H + lam I) dx = -b over the free dofs (dense Cholesky; or the
+landmark Schur complement, graph/schur.py; or matrix-free PCG,
+graph/pcg.py), the manifold update, and the chi2-gated accept/reject with
+Nielsen damping.
 
 The JAX ``lax.while_loop`` becomes a Python loop whose state never leaves
 the device. The host reads the ``done`` flag every ``CHECK_EVERY``
@@ -26,6 +28,8 @@ from typing import NamedTuple
 import torch
 
 from .linearize import apply_delta, build_system, chi2_only, free_dof_mask
+from .pcg import linearize_blocks, solve_pcg
+from .schur import has_landmark_coupling, solve_schur
 from .types import GraphData
 
 CHECK_EVERY = 4  # iterations between two host reads of ``done``
@@ -61,15 +65,18 @@ def dense_step(H: torch.Tensor, b: torch.Tensor, lam: torch.Tensor, free_f: torc
 def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "dense") -> tuple[GraphData, OptimizeStats]:
     """Run LM for up to max_iterations accept/reject steps.
 
-    Only the dense Cholesky solver is ported; ``"pcg"`` and ``"schur"`` are
-    ROADMAP Queue 1 item 11 of the port (graph/pcg.py, graph/schur.py).
+    linear_solver:
+    - "dense": Cholesky over all dofs;
+    - "schur": eliminate the plane / point landmark blocks first
+      (graph/schur.py, g2o's landmark marginalization); refused for graphs
+      with landmark-landmark edges, which HdlGraphSlam never creates;
+    - "pcg": matrix-free Jacobi-preconditioned CG (graph/pcg.py), no dense H.
     """
-    if linear_solver in ("pcg", "schur"):
-        raise NotImplementedError(
-            f"linear_solver={linear_solver!r}: graph/{linear_solver}.py is ROADMAP Queue 1 item 11 of the port"
-        )
-    if linear_solver != "dense":
+    if linear_solver not in ("dense", "schur", "pcg"):
         raise ValueError(f"unknown linear_solver {linear_solver!r}")
+    if linear_solver == "schur" and has_landmark_coupling(data):
+        raise ValueError("linear_solver='schur' requires a block-diagonal landmark block; "
+                         "this graph has plane-plane edges — use 'dense'")
     dtype, dev = data.poses.dtype, data.poses.device
     free = free_dof_mask(data)
     free_f = free.to(dtype)
@@ -85,13 +92,22 @@ def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "d
     done = torch.zeros((), dtype=torch.bool, device=dev)
 
     for i in range(max_iterations):
-        H, b, _, chi2_rob = build_system(data)
-        dx = dense_step(H, b, lam, free_f)
+        if linear_solver == "pcg":
+            sys_ = linearize_blocks(data)
+            chi2_rob, bf = sys_.chi2_robust, sys_.b * free_f
+            dx = solve_pcg(sys_, lam, free)
+        else:
+            H, b, _, chi2_rob = build_system(data)
+            bf = b * free_f
+            if linear_solver == "schur":
+                Hf = H * free_f[:, None] * free_f[None, :] + torch.diag(1.0 - free_f)
+                dx = solve_schur(Hf + lam * torch.diag(free_f), bf, 6 * data.poses.shape[0])
+            else:
+                dx = dense_step(H, b, lam, free_f)
         data_new = apply_delta(data, dx)
         _, chi2_new = chi2_only(data_new)
 
         accept = (chi2_new < chi2_rob) & torch.isfinite(chi2_new)
-        bf = b * free_f
         denom = torch.dot(dx, lam * dx - bf)
         rho = (chi2_rob - chi2_new) / torch.where(denom.abs() < 1e-30, 1e-30, denom)
         lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)

@@ -65,10 +65,11 @@ def _eigvec_for(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     v = torch.where(best12[..., None], c12, torch.where(best02[..., None], c02, c01))
     v = v / torch.sqrt(torch.clamp((v * v).sum(-1, keepdim=True), min=_EPS))
     # degenerate (repeated eigenvalue): any unit vector of the eigenspace
-    # serves the regularization use cases; fall back to +z
+    # serves the regularization use cases; fall back to +z (a row of a
+    # device-built identity: writing 1.0 into a 0-d view of one vector would
+    # copy the scalar from the host and synchronize)
     degen = torch.maximum(torch.maximum(n01, n02), n12) < 1e-24
-    fallback = torch.zeros_like(v)
-    fallback[..., 2] = 1.0
+    fallback = torch.eye(3, dtype=v.dtype, device=v.device)[2]
     return torch.where(degen[..., None], fallback, v)
 
 

@@ -4,10 +4,12 @@
 Equivalent of hdl_graph_slam::select_registration_method
 (src/hdl_graph_slam/registrations.cpp:22-124) with the pcl::Registration-style
 surface the backend uses (set a target once, align sources with a guess,
-read the fitness score). Ported: FAST_GICP / GICP / GICP_OMP
-(registration.gicp) and NDT / NDT_OMP with KDTREE, DIRECT1 or DIRECT7
-(registration.ndt); VGICP and ICP raise NotImplementedError naming their
-ROADMAP item.
+read the fitness score). Method mapping (reference -> this engine):
+
+- FAST_GICP, GICP, GICP_OMP -> registration.gicp (fast_gicp semantics);
+- FAST_VGICP, FAST_VGICP_CUDA -> registration.vgicp;
+- ICP -> registration.icp;
+- NDT, NDT_OMP (KDTREE / DIRECT1 / DIRECT7) -> registration.ndt.
 """
 
 from __future__ import annotations
@@ -20,20 +22,19 @@ from ..core.cloud import PointCloud
 from ..core.config import RegistrationConfig
 from ..ops import knn
 from ..ops import voxel as voxelops
-from . import gicp, ndt
+from . import gicp, icp, ndt, vgicp
 from .base import AlignResult
 
 
 def method_of(cfg: RegistrationConfig) -> str:
-    """The engine family of a configured method, as the JAX factory maps
-    it; raises for the families the port does not have yet."""
+    """The engine family of a configured method, as the JAX factory maps it."""
     m = cfg.registration_method.upper()
     if "VGICP" in m:
-        raise NotImplementedError(f"{cfg.registration_method}: VGICP is ROADMAP Queue 1 item 7 of the port")
+        return "VGICP"
     if "GICP" in m:
         return "GICP"
     if m == "ICP":
-        raise NotImplementedError(f"{cfg.registration_method}: ICP is ROADMAP Queue 1 item 9 of the port")
+        return "ICP"
     return "NDT"
 
 
@@ -44,40 +45,58 @@ def dense_grid_size(cfg: RegistrationConfig) -> int:
 
 def prepare_source(cfg: RegistrationConfig, cloud: PointCloud):
     """A source cloud (or a leading batch of them) as the configured method
-    aligns it: GICP's per-point covariances; NDT takes the cloud as it is."""
-    if method_of(cfg) == "NDT":
+    aligns it: GICP's and VGICP's per-point covariances; NDT and ICP take
+    the cloud as it is."""
+    if method_of(cfg) in ("NDT", "ICP"):
         return cloud
     return gicp.preprocess(cloud, k=cfg.reg_correspondence_randomness)
 
 
 def make_target(cfg: RegistrationConfig, cloud: PointCloud, max_voxels: int = 8192, source=None):
-    """The preprocessed target of ``cloud`` for the configured method. A GICP
-    target is the cloud's preprocessed source, so ``source``
-    (prepare_source of the same cloud), when given, is returned as it is."""
-    if method_of(cfg) == "NDT":
+    """The preprocessed target of ``cloud`` for the configured method.
+    ``source`` (prepare_source of the same cloud), when given, is reused: a
+    GICP target is that source as it is, a VGICP target aggregates its
+    covariances into voxels. An ICP target is the cloud."""
+    method = method_of(cfg)
+    if method == "NDT":
         return ndt.preprocess_target(cloud, cfg.reg_resolution, max_voxels=max_voxels,
                                      grid_size=dense_grid_size(cfg))
+    if method == "VGICP":
+        return vgicp.preprocess_target(cloud, cfg.reg_resolution, max_voxels=max_voxels,
+                                       k=cfg.reg_correspondence_randomness, grid_size=dense_grid_size(cfg),
+                                       src=source)
+    if method == "ICP":
+        return cloud
     return source if source is not None else prepare_source(cfg, cloud)
 
 
 def elementwise_target(tgt) -> bool:
     """Whether a keyframe switch may select the next target elementwise on
     the device, with the frame's target made on every frame: a GICP target
-    is the frame's own prepared source and costs nothing more. Any other
-    target is a build of its own, made only on switching frames."""
-    return isinstance(tgt, gicp.GicpCloud)
+    is the frame's own prepared source and an ICP target its cloud, so they
+    cost nothing more. Any other target (NDT's, VGICP's voxels) is a build
+    of its own, made only on switching frames."""
+    return isinstance(tgt, (gicp.GicpCloud, PointCloud))
 
 
 def align(cfg: RegistrationConfig, tgt, source, guess: torch.Tensor) -> AlignResult:
     """Align a prepared source (N rows with a (4, 4) guess, or a leading
     batch with (B, 4, 4)) onto a target with the configuration's options."""
-    if method_of(cfg) == "NDT":
-        return ndt.align(tgt, source, guess, transformation_epsilon=cfg.reg_transformation_epsilon,
-                         max_iterations=cfg.reg_maximum_iterations, nn_search_method=cfg.reg_nn_search_method,
-                         reassoc_displacement=cfg.reg_reassoc_displacement)
+    method = method_of(cfg)
+    eps, iters = cfg.reg_transformation_epsilon, cfg.reg_maximum_iterations
+    if method == "NDT":
+        return ndt.align(tgt, source, guess, transformation_epsilon=eps, max_iterations=iters,
+                         nn_search_method=cfg.reg_nn_search_method, reassoc_displacement=cfg.reg_reassoc_displacement)
+    if method == "VGICP":
+        return vgicp.align(tgt, source, guess, transformation_epsilon=eps, max_iterations=iters,
+                           reassoc_displacement=cfg.reg_reassoc_displacement)
+    if method == "ICP":
+        return icp.align(tgt, source, guess, max_corr_dist=cfg.reg_max_correspondence_distance,
+                         transformation_epsilon=eps, max_iterations=iters,
+                         use_reciprocal=cfg.reg_use_reciprocal_correspondences)
     return gicp.align(tgt, source, guess, max_corr_dist=cfg.reg_max_correspondence_distance,
-                      transformation_epsilon=cfg.reg_transformation_epsilon,
-                      max_iterations=cfg.reg_maximum_iterations, reassoc_displacement=cfg.reg_reassoc_displacement)
+                      transformation_epsilon=eps, max_iterations=iters,
+                      reassoc_displacement=cfg.reg_reassoc_displacement)
 
 
 class Registration:

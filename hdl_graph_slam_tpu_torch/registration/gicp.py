@@ -121,9 +121,11 @@ def _associate(T: torch.Tensor, src: GicpCloud, tgt: GicpCloud, max_corr_dist: f
     return GicpCorr(idx=idx, Mw=Mw, num=valid.sum(-1, dtype=torch.int32))
 
 
-def _linearize_at(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt: GicpCloud):
+def _linearize_points(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt_xyz: torch.Tensor):
+    """H, b, cost and inliers of the carried correspondences at T against
+    the target points ``tgt_xyz`` (GICP's cloud, VGICP's voxel means)."""
     moved = _moved(T, src.xyz)
-    e = tgt.xyz[corr.idx] - moved  # (..., N, 3)
+    e = tgt_xyz[corr.idx] - moved  # (..., N, 3)
     # J_i = d e / d [v, w] for the left-multiplied increment exp([v,w]) T:
     # e(delta) ~= e - v - w x (T a)  =>  J = [-I | skew(moved)]
     skew = se3.hat(moved)  # (..., N, 3, 3)
@@ -136,9 +138,17 @@ def _linearize_at(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt: GicpClou
     return H, b, cost, corr.num
 
 
-def _cost_at(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt: GicpCloud) -> torch.Tensor:
-    e = tgt.xyz[corr.idx] - _moved(T, src.xyz)
+def _cost_points(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt_xyz: torch.Tensor) -> torch.Tensor:
+    e = tgt_xyz[corr.idx] - _moved(T, src.xyz)
     return (e * (corr.Mw @ e[..., None])[..., 0]).sum((-1, -2))
+
+
+def _linearize_at(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt: GicpCloud):
+    return _linearize_points(T, corr, src, tgt.xyz)
+
+
+def _cost_at(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt: GicpCloud) -> torch.Tensor:
+    return _cost_points(T, corr, src, tgt.xyz)
 
 
 def align(

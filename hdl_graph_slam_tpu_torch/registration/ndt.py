@@ -17,7 +17,8 @@ KDTREE neighbour search, transformation_epsilon, max_iterations).
 Three reductions of the Newton loop have hand-written Hopper kernels
 (csrc/ndt.cu), each with its plain PyTorch twin here:
 
-- ``associate``: the DIRECT1 / DIRECT7 cell association (``_gather_cells``);
+- ``associate_cells``: the DIRECT1 / DIRECT7 cell association (``_gather_cells``),
+  which VGICP's voxel lookup shares (registration/vgicp.py);
 - ``derivatives``: gradient, Hessian and score at a pose under a carried
   association (``score_derivatives`` over the gathered cells);
 - ``trial_scores``: the scores of L trial poses under one association
@@ -113,15 +114,18 @@ def _gather_mean_icov(tgt: NdtTarget, idx: torch.Tensor):
     return rows[..., :3], rows[..., 3:].reshape(idx.shape + (3, 3))
 
 
-def _gather_cells(tgt: NdtTarget, pts: torch.Tensor, mask: torch.Tensor, offsets: torch.Tensor):
-    """Cell indices and found flags of each point's neighbour cells,
-    (..., N, 3) -> (..., N, K): one dense-grid read per cell when the target
-    carries a grid, else the int32 binary search."""
-    nkeys = voxelops.neighbor_query_keys(tgt.voxels, pts, mask, offsets)
-    if tgt.grid is not None:
-        idx, found = voxelops.lookup_dense(tgt.grid, nkeys.reshape(-1), voxelops.grid_dim(tgt.grid))
+def _gather_cells(voxels, grid: Optional[torch.Tensor], pts: torch.Tensor, mask: torch.Tensor,
+                  offsets: torch.Tensor):
+    """Cell indices and found flags of each point's neighbour cells in a
+    sorted voxel table (``keys``, ``mask``, ``origin``, ``resolution``:
+    a GaussianVoxels or a VGICP target), (..., N, 3) -> (..., N, K): one
+    dense-grid read per cell when ``grid`` is given, else the int32 binary
+    search."""
+    nkeys = voxelops.neighbor_query_keys(voxels, pts, mask, offsets)
+    if grid is not None:
+        idx, found = voxelops.lookup_dense(grid, nkeys.reshape(-1), voxelops.grid_dim(grid))
     else:
-        idx, found = voxelops.lookup_voxels(tgt.voxels, nkeys.reshape(-1))
+        idx, found = voxelops.lookup_voxels(voxels, nkeys.reshape(-1))
     return idx.reshape(nkeys.shape), found.reshape(nkeys.shape)
 
 
@@ -223,37 +227,52 @@ def _check(name: str, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor) ->
         raise ValueError(f"{name}: unsupported device {xyz.device}")
 
 
-def associate_plain(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor,
-                    method: str = "DIRECT7") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of ``associate``: transform_points, then ``_gather_cells``."""
+def associate_cells_plain(voxels, grid: Optional[torch.Tensor], xyz: torch.Tensor, mask: torch.Tensor,
+                          T: torch.Tensor, method: str = "DIRECT7") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``associate_cells``: transform_points, then ``_gather_cells``."""
     offsets = voxelops.neighbor_offsets(method, device=xyz.device)
-    return _gather_cells(tgt, se3.transform_points(T, xyz), mask, offsets)
+    return _gather_cells(voxels, grid, se3.transform_points(T, xyz), mask, offsets)
 
 
-def associate(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor,
-              method: str = "DIRECT7") -> Tuple[torch.Tensor, torch.Tensor]:
-    """DIRECT1 / DIRECT7 cell association of B point sets at their poses:
+def associate_cells(voxels, grid: Optional[torch.Tensor], xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor,
+                    method: str = "DIRECT7") -> Tuple[torch.Tensor, torch.Tensor]:
+    """DIRECT1 / DIRECT7 cell association of B point sets at their poses in
+    a sorted voxel table (its ``keys``, ``mask``, ``origin`` and
+    ``resolution``) with its flat dense grid, or None for the key search:
     xyz (B, n, 3), mask (B, n), T (B, 4, 4) -> idx (B, n, K) int32, found
-    (B, n, K) bool, K = 1 or 7 (ndt_associate_kernel on the card)."""
+    (B, n, K) bool, K = 1 or 7 (ndt_associate_kernel on the card). NDT's
+    cells and VGICP's voxels both associate here."""
     _check("ndt associate", xyz, mask, T)
     if xyz.device.type == "cpu":
-        return associate_plain(tgt, xyz, mask, T, method)
+        return associate_cells_plain(voxels, grid, xyz, mask, T, method)
     K = 1 if method.upper() == "DIRECT1" else 7
     xyz, mask, T = xyz.contiguous(), mask.contiguous(), T.contiguous()
     b, n = mask.shape
     idx = torch.empty((b, n, K), dtype=torch.int32, device=xyz.device)
     found = torch.empty((b, n, K), dtype=torch.bool, device=xyz.device)
-    vox = tgt.voxels
-    G = voxelops.grid_dim(tgt.grid) if tgt.grid is not None else 0
+    G = voxelops.grid_dim(grid) if grid is not None else 0
     kernels.check(kernels.load("ndt").hgs_ndt_associate(
-        xyz.data_ptr(), mask.data_ptr(), T.data_ptr(), b, n, K, vox.origin.data_ptr(),
-        ctypes.c_float(vox.resolution), None if tgt.grid is None else tgt.grid.data_ptr(), G, vox.keys.data_ptr(), vox.mask.data_ptr(),
-        vox.keys.shape[0], idx.data_ptr(), found.data_ptr(), kernels.stream(xyz)), "ndt associate")
-    associate.launches += 1
+        xyz.data_ptr(), mask.data_ptr(), T.data_ptr(), b, n, K, voxels.origin.data_ptr(),
+        ctypes.c_float(voxels.resolution), None if grid is None else grid.data_ptr(), G, voxels.keys.data_ptr(),
+        voxels.mask.data_ptr(), voxels.keys.shape[0], idx.data_ptr(), found.data_ptr(), kernels.stream(xyz)),
+        "ndt associate")
+    associate_cells.launches += 1
     return idx, found
 
 
-associate.launches = 0
+associate_cells.launches = 0
+
+
+def associate_plain(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor,
+                    method: str = "DIRECT7") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``associate``."""
+    return associate_cells_plain(tgt.voxels, tgt.grid, xyz, mask, T, method)
+
+
+def associate(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor,
+              method: str = "DIRECT7") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``associate_cells`` in the target's Gaussian cells: one launch a call."""
+    return associate_cells(tgt.voxels, tgt.grid, xyz, mask, T, method)
 
 
 def derivatives_plain(tgt: NdtTarget, xyz: torch.Tensor, mask: torch.Tensor, T: torch.Tensor, idx: torch.Tensor,

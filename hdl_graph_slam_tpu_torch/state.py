@@ -3,11 +3,17 @@
 The system has no weights; its state is the odometry state and the pose
 graph.
 
-- Odometry: the keyframe target GicpCloud (xyz (N,3), mask (N,), covs
-  (N,3,3)), keyframe_pose, prev_trans and prev_delta (each 4x4) and
-  keyframe_stamp. Its numpy form is a flat dict with the keys of
-  ``STATE_KEYS``, which the JAX package's OdomState fills field for field
-  (tgt.xyz -> "tgt_xyz", ...).
+- Odometry: the keyframe target, keyframe_pose, prev_trans and prev_delta
+  (each 4x4) and keyframe_stamp. Its numpy form is a flat dict, which the
+  JAX package's OdomState fills field for field (tgt.xyz -> "tgt_xyz",
+  ...): ``STATE_KEYS`` for a GICP target (a GicpCloud: xyz (N,3), mask
+  (N,), covs (N,3,3)); for the other methods "tgt_kind" names the target
+  and ``TARGET_KEYS`` its fields: an ICP target is the PointCloud (xyz,
+  mask), a VGICP target its voxel table (vgicp.VgicpTarget), an NDT target
+  its Gaussian cells with icovs, d1 and d2 (ndt.NdtTarget). A voxel
+  target's dense grid is not carried: "tgt_grid_size" (0 for none) rebuilds
+  it from the keys, and NDT's cell rows are rebuilt from its means and
+  icovs.
 - The frozen pose graph (graph.types.GraphData): a flat dict with the
   vertex fields under their own names ("poses", "pose_fixed", ...) and each
   edge table's fields under "<edge type>.<field>" ("se3_se3.vi", ...). The
@@ -25,9 +31,21 @@ import torch
 from .core.device import resolve_device
 from .frontend.odometry_device import OdomState
 from .graph.types import EDGE_SPECS, EdgeTable, GraphData
+from .core.cloud import PointCloud
+from .ops import voxel as voxelops
 from .registration.gicp import GicpCloud
+from .registration.ndt import NdtTarget
+from .registration.vgicp import VgicpTarget
 
 STATE_KEYS = ("tgt_xyz", "tgt_mask", "tgt_covs", "keyframe_pose", "prev_trans", "keyframe_stamp", "prev_delta")
+ODOM_KEYS = STATE_KEYS[3:]
+_VOXEL_KEYS = ("tgt_keys", "tgt_means", "tgt_covs", "tgt_mask", "tgt_resolution", "tgt_origin", "tgt_grid_size")
+TARGET_KEYS = {
+    "gicp": STATE_KEYS[:3],
+    "icp": ("tgt_xyz", "tgt_mask"),
+    "vgicp": _VOXEL_KEYS,
+    "ndt": _VOXEL_KEYS + ("tgt_counts", "tgt_icovs", "tgt_d1", "tgt_d2"),
+}
 GRAPH_VERTEX_KEYS = ("poses", "pose_fixed", "pose_mask", "planes", "plane_fixed", "plane_mask",
                      "points", "point_fixed", "point_mask")
 EDGE_KEYS = ("vi", "vj", "meas", "info", "kernel_id", "kernel_delta", "mask")
@@ -64,9 +82,54 @@ def graph_data_to_numpy(data: GraphData) -> Dict[str, np.ndarray]:
     return out
 
 
+def _target_from_numpy(kind: str, arrays: Dict[str, np.ndarray], device):
+    def t(key, dtype=np.float32):
+        return torch.from_numpy(np.array(arrays[key], dtype=dtype)).to(device)
+
+    if kind == "gicp":
+        return GicpCloud(xyz=t("tgt_xyz"), mask=t("tgt_mask", bool), covs=t("tgt_covs"))
+    if kind == "icp":
+        return PointCloud(xyz=t("tgt_xyz"), mask=t("tgt_mask", bool))
+    keys, mask, G = t("tgt_keys", np.int32), t("tgt_mask", bool), int(arrays["tgt_grid_size"])
+    grid = voxelops.build_dense_grid(keys, mask, G) if G else None
+    res = float(np.float32(arrays["tgt_resolution"]))
+    if kind == "vgicp":
+        return VgicpTarget(keys=keys, means=t("tgt_means"), covs=t("tgt_covs"), mask=mask, resolution=res,
+                           origin=t("tgt_origin", np.int32), grid=grid)
+    voxels = voxelops.GaussianVoxels(keys=keys, means=t("tgt_means"), covs=t("tgt_covs"), counts=t("tgt_counts"),
+                                     mask=mask, resolution=res, origin=t("tgt_origin", np.int32))
+    icovs = t("tgt_icovs")
+    return NdtTarget(voxels=voxels, icovs=icovs, d1=float(np.float32(arrays["tgt_d1"])),
+                     d2=float(np.float32(arrays["tgt_d2"])), grid=grid,
+                     cell_rows=torch.cat([voxels.means, icovs.reshape(-1, 9)], dim=1).contiguous())
+
+
+def _target_to_numpy(tgt) -> Dict[str, np.ndarray]:
+    def n(x):
+        return x.cpu().numpy()
+
+    if isinstance(tgt, GicpCloud):
+        return {"tgt_kind": np.array("gicp"), "tgt_xyz": n(tgt.xyz), "tgt_mask": n(tgt.mask), "tgt_covs": n(tgt.covs)}
+    if isinstance(tgt, PointCloud):
+        return {"tgt_kind": np.array("icp"), "tgt_xyz": n(tgt.xyz), "tgt_mask": n(tgt.mask)}
+    vox, kind = (tgt.voxels, "ndt") if isinstance(tgt, NdtTarget) else (tgt, "vgicp")
+    out = {"tgt_kind": np.array(kind), "tgt_keys": n(vox.keys), "tgt_means": n(vox.means), "tgt_covs": n(vox.covs),
+           "tgt_mask": n(vox.mask), "tgt_resolution": np.float32(vox.resolution), "tgt_origin": n(vox.origin),
+           "tgt_grid_size": np.int64(0 if tgt.grid is None else voxelops.grid_dim(tgt.grid))}
+    if kind == "ndt":
+        out.update(tgt_counts=n(vox.counts), tgt_icovs=n(tgt.icovs), tgt_d1=np.float32(tgt.d1),
+                   tgt_d2=np.float32(tgt.d2))
+    return out
+
+
 def odom_state_from_numpy(arrays: Dict[str, np.ndarray], device) -> OdomState:
-    """The port's OdomState on ``device`` from its numpy form (float32, mask bool)."""
-    missing = [k for k in STATE_KEYS if k not in arrays]
+    """The port's OdomState on ``device`` from its numpy form (floats
+    float32, masks bool, keys and origins int32). "tgt_kind" (gicp, icp,
+    vgicp or ndt) names the target; without it the target is GICP's."""
+    kind = str(arrays.get("tgt_kind", "gicp"))
+    if kind not in TARGET_KEYS:
+        raise ValueError(f"odom_state_from_numpy: unknown target kind {kind!r}")
+    missing = [k for k in TARGET_KEYS[kind] + ODOM_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"odom_state_from_numpy: missing {missing}")
 
@@ -74,11 +137,7 @@ def odom_state_from_numpy(arrays: Dict[str, np.ndarray], device) -> OdomState:
         return torch.from_numpy(np.array(arrays[key], dtype=np.float32)).to(device)
 
     return OdomState(
-        tgt=GicpCloud(
-            xyz=f32("tgt_xyz"),
-            mask=torch.from_numpy(np.array(arrays["tgt_mask"], dtype=bool)).to(device),
-            covs=f32("tgt_covs"),
-        ),
+        tgt=_target_from_numpy(kind, arrays, device),
         keyframe_pose=f32("keyframe_pose"),
         prev_trans=f32("prev_trans"),
         keyframe_stamp=f32("keyframe_stamp").reshape(()),
@@ -89,9 +148,7 @@ def odom_state_from_numpy(arrays: Dict[str, np.ndarray], device) -> OdomState:
 def odom_state_to_numpy(state: OdomState) -> Dict[str, np.ndarray]:
     """The numpy form of an OdomState (the inverse of odom_state_from_numpy)."""
     return {
-        "tgt_xyz": state.tgt.xyz.cpu().numpy(),
-        "tgt_mask": state.tgt.mask.cpu().numpy(),
-        "tgt_covs": state.tgt.covs.cpu().numpy(),
+        **_target_to_numpy(state.tgt),
         "keyframe_pose": state.keyframe_pose.cpu().numpy(),
         "prev_trans": state.prev_trans.cpu().numpy(),
         "keyframe_stamp": state.keyframe_stamp.cpu().numpy(),

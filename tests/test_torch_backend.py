@@ -285,16 +285,11 @@ def test_backend_course_matches_jax():
 
 @pytest.mark.parametrize("method,item", [("FAST_VGICP", "7"), ("NDT_OMP", "8"), ("ICP", "9")])
 def test_unported_registration_methods_raise(method, item):
-    """VGICP (item 7) and ICP (item 9) still raise. NDT (item 8) is ported:
-    the factory and the loop detector construct it, and the loop detector
-    matches the line course's candidates with it (one batched NDT align)."""
-    if method != "NDT_OMP":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            factory.select_registration_method(RegistrationConfig(registration_method=method))
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            LoopDetector(port_loop_cfg(method))
-        return
-    assert factory.select_registration_method(RegistrationConfig(registration_method=method)).method == "NDT"
+    """VGICP (item 7), NDT (item 8) and ICP (item 9) are ported: the factory
+    and the loop detector construct each, and the loop detector matches the
+    line course's candidates with it (one batched align); nothing raises."""
+    family = {"FAST_VGICP": "VGICP", "NDT_OMP": "NDT", "ICP": "ICP"}[method]
+    assert factory.select_registration_method(RegistrationConfig(registration_method=method)).method == family
     det = LoopDetector(port_loop_cfg(method, reg_resolution=1.0))
     _, new, est, kfs, new_p = line_course()
     cand = det.find_candidates(kfs, new_p, est)

@@ -433,7 +433,7 @@ def test_launch_counts_read_the_ndt_wrappers():
     as knn_select_k8; reset_launches zeroes them too."""
     from hdl_graph_slam_tpu_torch.registration import ndt
 
-    ndt.associate.launches, ndt.derivatives.launches, ndt.trial_scores.launches = 2, 3, 4
+    ndt.associate_cells.launches, ndt.derivatives.launches, ndt.trial_scores.launches = 2, 3, 4
     knn.knn_select.launches_k = dict.fromkeys(knn.KNN_SELECT_KS, 0) | {8: 5}
     got = chip_smoke.read_launches(knn)
     assert (got["ndt_associate"], got["ndt_derivatives"], got["ndt_trial_scores"], got["knn_select_k8"]) == (2, 3, 4, 5)
@@ -728,3 +728,22 @@ def test_compare_g2o_allows_only_quaternion_last_digits(tmp_path):
     with open(port, "w") as f:
         f.write("\n".join(lines) + "\n")
     assert chip_smoke.compare_g2o(first, port)["other_tokens_differ"] == 1
+
+
+def test_graph_solver_cases_solve_on_cpu():
+    """The graph phase's solver cases on the CPU: chain_graph (20 poses,
+    the first fixed, a free floor plane) where PCG and Schur reach the dense
+    optimum within 1e-5; synthetic_graph(floor=True) adds the floor plane
+    as a landmark with an se3_plane edge from every pose."""
+    from hdl_graph_slam_tpu_torch.graph import optimize
+
+    g = chip_smoke.chain_graph()
+    assert len(g.planes) == 1 and len(g.poses) == 20
+    dense, _ = optimize(g.freeze(dtype=torch.float64, device="cpu"), max_iterations=60)
+    for solver in ("pcg", "schur"):
+        out, st = optimize(g.freeze(dtype=torch.float64, device="cpu"), max_iterations=60, linear_solver=solver)
+        np.testing.assert_allclose(out.poses.numpy(), dense.poses.numpy(), atol=chip_smoke.GRAPH_SOLVER_VS_DENSE_M)
+        assert float(st.chi2_robust_after) < float(st.chi2_robust_before)
+    ring, floor = chip_smoke.synthetic_graph(0), chip_smoke.synthetic_graph(0, floor=True)
+    assert len(floor.planes) == 1 and len(floor.poses) == len(ring.poses)
+    assert floor.num_edges == ring.num_edges + len(ring.poses) - 1  # the anchor node sees no floor

@@ -98,11 +98,10 @@ def test_run_windowed_matches_jax_pipeline():
 
 
 def test_unported_pipeline_branches_raise():
-    """What the port had not: the backend on a worker thread (item 13) and
-    NDT odometry (item 8) are ported: AsyncBackend builds,
-    run_windowed(overlap_backend=True) runs, and a pipeline with NDT_OMP
-    odometry runs frames per frame and windowed. VGICP odometry (item 7)
-    still raises."""
+    """What the port had not: the backend on a worker thread (item 13), NDT
+    odometry (item 8) and VGICP odometry (item 7) are ported: AsyncBackend
+    builds, run_windowed(overlap_backend=True) runs, and pipelines with
+    NDT_OMP and FAST_VGICP odometry run frames per frame and windowed."""
     cfg = course_cfg(SlamConfig(), RegistrationConfig)
     pipe = SlamPipeline(cfg, cloud_capacity=CLOUD_CAPACITY, device="cpu")
     frames, _ = course()
@@ -115,9 +114,10 @@ def test_unported_pipeline_branches_raise():
     res = SlamPipeline(cfg, cloud_capacity=CLOUD_CAPACITY, device="cpu").run_windowed(frames[:3],
                                                                                        raw_capacity=RAW_CAPACITY)
     assert res.num_frames == 3
-    cfg.odometry.registration = RegistrationConfig(registration_method="FAST_VGICP")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SlamPipeline(cfg, device="cpu")
+    cfg.odometry.registration = RegistrationConfig(registration_method="FAST_VGICP", reg_resolution=1.0)
+    res = SlamPipeline(cfg, cloud_capacity=CLOUD_CAPACITY, device="cpu").run_windowed(frames[:3],
+                                                                                       raw_capacity=RAW_CAPACITY)
+    assert res.num_frames == 3 and np.isfinite(np.stack([T for _, T in res.odometry_trajectory])).all()
 
 
 def test_pipeline_defaults_to_cuda():

@@ -266,7 +266,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         for make in ctors:
             with pytest.raises(RuntimeError, match="CUDA"):
                 make()
-    # NDT is ported: the window builds and runs it on the CPU when asked; VGICP raises
+    # NDT is ported: the window builds and runs it on the CPU when asked; so are VGICP and ICP
     ndt_win = OdometryWindow(OdometryConfig(registration=RegistrationConfig(registration_method="NDT_OMP")),
                              prefilter_cfg=PrefilterConfig(**PF), out_capacity=OUT_CAPACITY, device="cpu")
     sc = scans()
@@ -274,8 +274,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     _, odoms, status = ndt_win.run(ndt_win.init_state(0.0, cloud.from_numpy(sc[0], capacity=RAW_CAPACITY,
                                                                            device="cpu")), xyz, mask, [0.1, 0.2])
     assert odoms.shape == (2, 4, 4) and torch.isfinite(odoms).all() and status["iterations"].min() >= 1
-    with pytest.raises(NotImplementedError):
-        OdometryWindow(OdometryConfig(registration=RegistrationConfig(registration_method="FAST_VGICP")), device="cpu")
+    for method in ("FAST_VGICP", "ICP"):
+        win = OdometryWindow(OdometryConfig(registration=RegistrationConfig(registration_method=method)), device="cpu")
+        assert win.device.type == "cpu"
     # a kernel wrapper on a device that is neither the CPU nor CUDA raises
     meta = torch.zeros(8, 3, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -63,7 +63,7 @@ def run_here(root: str, repeats: int, scans_path: str, ndt: bool) -> None:
     from hdl_graph_slam_tpu_torch.ops import knn
 
     scans = load_scans(scans_path)
-    odo_cfg = chip_smoke.ndt_odometry_config(chip_smoke.NDT_MAIN_REG) if ndt else None
+    odo_cfg = chip_smoke.odometry_config(chip_smoke.NDT_MAIN_REG) if ndt else None
     win, first, xyz, mask, stamps = chip_smoke.main_path(scans, odo_cfg)
     chip_smoke.drive_window(win, first, xyz[:16], mask[:16], stamps[:16])  # warm-up: builds the kernels
     frames = xyz.shape[0]
