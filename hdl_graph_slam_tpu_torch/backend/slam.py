@@ -11,12 +11,12 @@ ROS queues/timers replaced by explicit method calls from the pipeline driver:
 
 The graph is host-side numpy (graph.types.GraphBuilder); each optimize cycle
 freezes it to float64 tensors on the device, runs the dense LM there and
-copies the estimates back once. Keyframe clouds stay on the device, and the
-map is built there. A dump has the reference's layout and loads in either
-package.
-
-Not ported: the distributed and hierarchical optimisers (``distributed``,
-``submap_block_size`` > 0) are ROADMAP Queue 1 item 14.
+copies the estimates back once. ``backend.distributed`` shards the edges
+over a mesh of the local devices, or over the processes of an initialized
+``torch.distributed`` group; ``backend.submap_block_size`` > 0 solves
+graphs of more poses through the submap hierarchy (parallel/). Keyframe
+clouds stay on the device, and the map is built there. A dump has the
+reference's layout and loads in either package.
 """
 
 from __future__ import annotations
@@ -27,12 +27,15 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from ..core.cloud import PointCloud
 from ..core.config import SlamConfig, wire_derived
 from ..core.device import resolve_device
 from ..graph import GraphBuilder, optimize as graph_optimize
 from ..io import geodesy
+from ..parallel import distributed_optimize, hierarchical_optimize, make_mesh
+from ..parallel.multihost import distributed_optimize_multihost
 from .information_matrix import InformationMatrixCalculator
 from .keyframe import KeyFrame, KeyFrameSnapshot, KeyframeUpdater
 from .loop_detector import LoopDetector
@@ -68,10 +71,7 @@ class HdlGraphSlam:
         self.cfg = wire_derived(cfg or SlamConfig())
         self.device = resolve_device(device)
         b = self.cfg.backend
-        if b.distributed or b.submap_block_size > 0:
-            raise NotImplementedError(
-                "backend.distributed / submap_block_size > 0: parallel/ is ROADMAP Queue 1 item 14 of the port"
-            )
+        self._mesh = None  # the local mesh of backend.distributed, made at its first use
         self.graph = GraphBuilder()
         self.keyframe_updater = KeyframeUpdater(b.keyframe_delta_trans, b.keyframe_delta_angle)
         self.loop_detector = LoopDetector(self.cfg.loop)
@@ -387,10 +387,26 @@ class HdlGraphSlam:
         # optimize (graph_slam.cpp:292-321; skip if < 10 edges), float64 on
         # the device as the JAX package under x64
         if self.graph.num_edges >= 10:
-            data = self.graph.freeze(dtype=torch.float64, device=self.device)
-            data, stats = graph_optimize(data, max_iterations=b.g2o_solver_num_iterations)
-            self.graph.update_estimates(data)
-            self.last_stats = stats
+            iters = b.g2o_solver_num_iterations
+            if b.submap_block_size > 0 and len(self.graph.poses) > b.submap_block_size:
+                # per-host keyframe blocks refined independently, condensed
+                # base graph solved globally (parallel/partition.py); both
+                # boundary phases per cycle (its rounds alternate the block
+                # offsets so boundary poses see their priors)
+                hierarchical_optimize(self.graph, block_size=b.submap_block_size, intra_iterations=iters,
+                                      inter_iterations=iters, rounds=2, device=self.device)
+            else:
+                data = self.graph.freeze(dtype=torch.float64, device=self.device)
+                if b.distributed and tdist.is_initialized() and tdist.get_world_size() > 1:
+                    data, stats = distributed_optimize_multihost(data, max_iterations=iters)
+                elif b.distributed:
+                    if self._mesh is None:
+                        self._mesh = make_mesh(device=self.device)
+                    data, stats = distributed_optimize(self._mesh, data, max_iterations=iters)
+                else:
+                    data, stats = graph_optimize(data, max_iterations=iters)
+                self.graph.update_estimates(data)
+                self.last_stats = stats
 
         if self.keyframes:
             last = self.keyframes[-1]

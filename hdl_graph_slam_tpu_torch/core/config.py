@@ -175,8 +175,9 @@ class BackendConfig:
     floor_edge_stddev: float = 10.0
     # --- TPU-native distribution / map scaling (no reference analog;
     # SURVEY.md §2.5 mapping, §5 "map scaling" slot) ---
-    # optimize with edge-sharded LM over the jax device mesh (all local
-    # devices; spans processes when jax.distributed is initialized)
+    # optimize with edge-sharded LM over a mesh of the local devices, or
+    # across processes when torch.distributed is initialized with a world
+    # size above 1 (parallel/)
     distributed: bool = False
     # >0: when the graph exceeds this many pose nodes, optimize via the
     # hierarchical submap partition (parallel/partition.py) — per-host

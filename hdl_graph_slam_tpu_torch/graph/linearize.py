@@ -8,6 +8,11 @@ reweighting (rho1 scaling of H and b), then scatter-adds of the dof blocks
 into a dense H (``index_put_`` with accumulation).
 
 State layout: [poses: 6 dof each | planes: 3 | points: 3].
+
+The LM loop reads the edges through a ``Linearizer``: this module's
+``build_system`` and ``chi2_only`` over every edge table in one place, or
+(``parallel/``) the same over edge shards, their partial (H, b, chi2) summed
+as the JAX package's ``axis_name`` psum sums them.
 """
 
 from __future__ import annotations
@@ -120,8 +125,9 @@ def build_system(data: GraphData) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
     """Assemble the dense H, b over all edge tables.
 
     Returns (H, b, chi2_raw, chi2_robust) where b = sum w J^T info r (the
-    gradient half; solve (H + lam I) dx = -b). The edge-sharded form (the
-    JAX package's ``axis_name`` psum) is the port's ``parallel/`` slice.
+    gradient half; solve (H + lam I) dx = -b). Over a shard of the edge
+    tables these are the shard's partial sums, which a ``Linearizer`` of
+    ``parallel/`` adds up (the JAX package's ``axis_name`` psum).
     """
     D = data.num_dof
     dtype, dev = data.poses.dtype, data.poses.device
@@ -187,3 +193,18 @@ def apply_delta(data: GraphData, dx: torch.Tensor) -> GraphData:
     dm = dx[6 * np_ + 3 * nl:].reshape(nm, 3)
     return data.replace(poses=se3.se3_oplus(data.poses, dp), planes=planelib.oplus(data.planes, dl),
                         points=data.points + dm)
+
+
+class Linearizer:
+    """The two reads an LM iteration makes of the edges: the whole system
+    and the chi2 alone. This one linearizes every edge table of the graph it
+    is given, on the graph's device. ``parallel/dist.py::ShardedLinearizer``
+    splits the tables into shards and returns the shards' summed (H, b,
+    chi2), the same on every shard and process, so that every replica of
+    the LM loop takes the same branch."""
+
+    def system(self, data: GraphData) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        return build_system(data)
+
+    def chi2(self, data: GraphData) -> Tuple[torch.Tensor, torch.Tensor]:
+        return chi2_only(data)

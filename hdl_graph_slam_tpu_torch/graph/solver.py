@@ -23,11 +23,11 @@ step is rejected, never raised.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from .linearize import apply_delta, build_system, chi2_only, free_dof_mask
+from .linearize import Linearizer, apply_delta, free_dof_mask
 from .pcg import linearize_blocks, solve_pcg
 from .schur import has_landmark_coupling, solve_schur
 from .types import GraphData
@@ -62,8 +62,14 @@ def dense_step(H: torch.Tensor, b: torch.Tensor, lam: torch.Tensor, free_f: torc
     return -torch.cholesky_solve((b * free_f)[:, None], L)[:, 0]
 
 
-def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "dense") -> tuple[GraphData, OptimizeStats]:
+def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "dense",
+             linearizer: Optional[Linearizer] = None) -> tuple[GraphData, OptimizeStats]:
     """Run LM for up to max_iterations accept/reject steps.
+
+    linearizer: where the system and the chi2 come from (None: every edge
+    table of ``data``, linearize.py; parallel/: the shards' sums, the JAX
+    package's ``axis_name``). The dense and Schur solves read it; PCG, whose
+    matrix-free blocks have no sharded form in either package, refuses one.
 
     linear_solver:
     - "dense": Cholesky over all dofs;
@@ -74,6 +80,8 @@ def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "d
     """
     if linear_solver not in ("dense", "schur", "pcg"):
         raise ValueError(f"unknown linear_solver {linear_solver!r}")
+    if linear_solver == "pcg" and linearizer is not None:
+        raise ValueError("linear_solver='pcg' linearizes its own blocks and takes no linearizer")
     if linear_solver == "schur" and has_landmark_coupling(data):
         raise ValueError("linear_solver='schur' requires a block-diagonal landmark block; "
                          "this graph has plane-plane edges — use 'dense'")
@@ -81,8 +89,9 @@ def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "d
     free = free_dof_mask(data)
     free_f = free.to(dtype)
 
-    chi2_raw0, chi2_rob0 = chi2_only(data)
-    H0, _, _, _ = build_system(data)
+    lin = Linearizer() if linearizer is None else linearizer
+    chi2_raw0, chi2_rob0 = lin.chi2(data)
+    H0, _, _, _ = lin.system(data)
     # g2o computeLambdaInit: tau * max diagonal over free dofs
     zero = torch.zeros((), dtype=dtype, device=dev)
     lam0 = 1e-5 * torch.where(free, torch.diagonal(H0), zero).amax()
@@ -97,7 +106,7 @@ def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "d
             chi2_rob, bf = sys_.chi2_robust, sys_.b * free_f
             dx = solve_pcg(sys_, lam, free)
         else:
-            H, b, _, chi2_rob = build_system(data)
+            H, b, _, chi2_rob = lin.system(data)
             bf = b * free_f
             if linear_solver == "schur":
                 Hf = H * free_f[:, None] * free_f[None, :] + torch.diag(1.0 - free_f)
@@ -105,7 +114,7 @@ def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "d
             else:
                 dx = dense_step(H, b, lam, free_f)
         data_new = apply_delta(data, dx)
-        _, chi2_new = chi2_only(data_new)
+        _, chi2_new = lin.chi2(data_new)
 
         accept = (chi2_new < chi2_rob) & torch.isfinite(chi2_new)
         denom = torch.dot(dx, lam * dx - bf)
@@ -126,7 +135,7 @@ def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "d
         if (i + 1) % CHECK_EVERY == 0 and bool(done):  # host sync
             break
 
-    chi2_raw1, chi2_rob1 = chi2_only(data)
+    chi2_raw1, chi2_rob1 = lin.chi2(data)
     stats = OptimizeStats(iterations=it, chi2_before=chi2_raw0, chi2_after=chi2_raw1,
                           chi2_robust_before=chi2_rob0, chi2_robust_after=chi2_rob1, lam_final=lam)
     return data, stats

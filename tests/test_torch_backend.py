@@ -300,17 +300,39 @@ def test_unported_registration_methods_raise(method, item):
 
 
 def test_unported_backend_branches_raise(tmp_path):
-    """What the backend has not yet: the distributed and hierarchical
-    optimisers (item 14). The map and persistence (item 12) are ported: on
-    an empty backend they return as the JAX package's do."""
+    """The backend's last two branches are ported (item 14): with
+    ``distributed`` (the sharded LM over a mesh of the backend's device) and
+    with ``submap_block_size`` > 0 (the submap hierarchy) HdlGraphSlam
+    constructs on the CPU and optimizes a 12-keyframe chain through that
+    branch, nothing raises. The map and persistence (item 12) are ported:
+    on an empty backend they return as the JAX package's do."""
     slam = HdlGraphSlam(SlamConfig(), device="cpu")
     assert slam.generate_map() is None and slam.save_map(str(tmp_path / "x.pcd")) is False
     assert slam.dump(str(tmp_path / "d")) and slam.load(str(tmp_path / "d")) and not slam.keyframes
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-8.0, 8.0, (200, 3)).astype(np.float32)
     for field in ("distributed", "submap_block_size"):
         cfg = SlamConfig()
-        setattr(cfg.backend, field, True if field == "distributed" else 16)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            HdlGraphSlam(cfg, device="cpu")
+        setattr(cfg.backend, field, True if field == "distributed" else 4)
+        cfg.backend.keyframe_delta_trans = 0.5
+        cfg.backend.max_keyframes_per_update = 100
+        cfg.backend.g2o_solver_num_iterations = 8
+        cfg.loop.distance_thresh = 0.0
+        slam = HdlGraphSlam(cfg, device="cpu")
+        for i in range(12):
+            odom = np.eye(4)
+            odom[0, 3] = float(i)
+            slam.add_frame(float(i), odom, cloud.from_numpy(pts, capacity=256, device="cpu"))
+        assert slam.flush() and len(slam.keyframes) == 12
+        assert np.isfinite(np.stack(slam.graph.poses)).all()
+        # the branch taken: the sharded LM's mesh on the backend's device, or
+        # the hierarchy (which keeps no LM stats)
+        if field == "distributed":
+            assert slam._mesh.devices == (torch.device("cpu"),) and slam.last_stats is not None
+        else:
+            assert slam._mesh is None and slam.last_stats is None
+        xs = [slam.graph.poses[k.node_id][0, 3] for k in slam.keyframes]
+        np.testing.assert_allclose(np.diff(xs), 1.0, atol=1e-6)
 
 
 def test_backend_defaults_to_cuda():

@@ -9,6 +9,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -747,3 +748,81 @@ def test_graph_solver_cases_solve_on_cpu():
     ring, floor = chip_smoke.synthetic_graph(0), chip_smoke.synthetic_graph(0, floor=True)
     assert len(floor.planes) == 1 and len(floor.poses) == len(ring.poses)
     assert floor.num_edges == ring.num_edges + len(ring.poses) - 1  # the anchor node sees no floor
+
+
+# -- the parallel phase's helpers ---------------------------------------------------------
+
+
+def _anchored_backend(adaptive=True):
+    """A stand-in for a loaded HdlGraphSlam: keyframe 0 (node 0), the fixed
+    anchor (node 1), keyframes 1 and 2 (nodes 2 and 3) at stamps 0, 3 and
+    6, estimates 1.8 m above their odometry."""
+    import types
+
+    from hdl_graph_slam_tpu_torch.graph import GraphBuilder
+
+    g = GraphBuilder()
+    odoms, est = [], []
+    for k in range(3):
+        odom = np.eye(4)
+        odom[:3, 3] = [2.0 * k, 0.1 * k, 0.0]
+        odoms.append(odom)
+        est.append(odom.copy())
+        est[-1][2, 3] = 1.8
+    nodes = [g.add_se3_node(est[0]), g.add_se3_node(np.eye(4), fixed=True), g.add_se3_node(est[1]),
+             g.add_se3_node(est[2])]
+    kfs = [types.SimpleNamespace(node_id=n, odom=o, stamp=float(3 * k))
+           for k, (n, o) in enumerate(zip((nodes[0], nodes[2], nodes[3]), odoms))]
+    backend = types.SimpleNamespace(fix_first_node_adaptive=adaptive)
+    return types.SimpleNamespace(graph=g, keyframes=kfs, anchor_node_id=nodes[1], anchor_edge_first_kf=nodes[0],
+                                 cfg=types.SimpleNamespace(backend=backend)), est
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_odometry_chain_resets_keyframes_and_the_anchor(adaptive):
+    slam, est = _anchored_backend(adaptive)
+    chain = chip_smoke.odometry_chain(slam)
+    for kf in slam.keyframes:
+        np.testing.assert_array_equal(chain.poses[kf.node_id], kf.odom)
+    # the anchor sits where the backend puts it before its first solve
+    np.testing.assert_array_equal(chain.poses[1], slam.keyframes[0].odom if adaptive else np.eye(4))
+    np.testing.assert_array_equal(slam.graph.poses[0], est[0])  # the backend's own graph is untouched
+    assert chain.pose_fixed == slam.graph.pose_fixed
+
+
+def test_keyframe_ate_aligns_and_measures():
+    """Keyframe poses on the truth read 0; moved rigidly they still read 0
+    (Umeyama alignment); one keyframe 0.3 m off reads the RMSE of that."""
+    slam, _ = _anchored_backend()
+    truth = [np.eye(4) for _ in range(7)]
+    for i, T in enumerate(truth):
+        T[:3, 3] = [2.0 * i / 3.0, 0.1 * i / 3.0 + 0.02 * (i % 2), 0.0]
+    chain = chip_smoke.odometry_chain(slam)
+    for kf in slam.keyframes:
+        chain.poses[kf.node_id] = truth[int(kf.stamp)].copy()
+    assert chip_smoke.keyframe_ate(chain, slam.keyframes, truth) < 1e-9
+    shift = np.eye(4)
+    shift[:3, 3] = [5.0, -3.0, 1.8]
+    for kf in slam.keyframes:
+        chain.poses[kf.node_id] = shift @ chain.poses[kf.node_id]
+    assert chip_smoke.keyframe_ate(chain, slam.keyframes, truth) < 1e-9
+    chain.poses[slam.keyframes[1].node_id][2, 3] += 0.3
+    assert 0.05 < chip_smoke.keyframe_ate(chain, slam.keyframes, truth) < 0.3
+
+
+def test_run_ranks_stops_failed_and_hung_ranks(tmp_path, monkeypatch):
+    """A rank that fails (a backend torch.distributed does not know) raises
+    with its log; ranks still running at the timeout are killed and raise.
+    The ranks' success path is tests/test_torch_multiprocess.py."""
+    from hdl_graph_slam_tpu_torch import state
+
+    arrays = state.graph_data_to_numpy(chip_smoke.chain_graph().freeze(device="cpu"))
+    with pytest.raises(RuntimeError, match="rank 0 of 1"):
+        chip_smoke.run_ranks(arrays, str(tmp_path / "bad"), world=1, device="cpu", backend="no_such_backend",
+                             iterations=2, timeout_s=120)
+    monkeypatch.setattr(chip_smoke, "MULTIHOST_CHILD", "import time\ntime.sleep(60)\n")
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="killed at the timeout"):
+        chip_smoke.run_ranks(arrays, str(tmp_path / "hung"), world=2, device="cpu", backend="gloo", iterations=2,
+                             timeout_s=1.0)
+    assert time.perf_counter() - t0 < 30
