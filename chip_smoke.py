@@ -72,10 +72,23 @@ before the last line:
            (ndt.associate_cells), through the grid and the key search,
            against the plain twin off cell faces (float64 face rule), again
            bit for bit, one device operation a call; timed beside its bound.
+   gicp_kernels  (early too) the GICP association and linearization
+           kernels (csrc/gicp.cu) against their plain twins on bench frames
+           0 (target) and 1 (source) at the three NDT_TWISTS poses, through
+           GICP's nn1 search and 2.5 m gate and through VGICP's voxel lookup
+           over vgicp_kernels' target: Mw within 1e-5 of its largest |entry|
+           and the same counts, H, b and the cost within 1e-4, the cost_only
+           call's cost bit for bit the full call's, every call again bit for
+           bit, each problem's single call bit for bit its row of the batch
+           of 3; each wrapper call one device operation of its kernel; timed
+           beside its bound (gicp_work, gicp_bounds). The same gates at the
+           loop detector's B = 8 x 4096 run after kernel_batched.
 4. main    bench.py's windowed FAST_GICP odometry (its configs, its course
            with seed 0, 16384-row raw scans, 8192-row filtered clouds) through
            the port's OdometryWindow on cuda, with bench.py's gates; kernel
-           launch counts are read around this run.
+           launch counts are read around this run (nn1, knn_select and the
+           GICP kernels at least once a frame); host syncs and device
+           operations a frame over 16 more frames, as window_phase.
    With --profile, torch.profiler then traces 16 more frames: device busy
    time, kernels launched per frame, the top kernels by device time and the
    port's own kernels' device time per launch, and
@@ -107,7 +120,9 @@ before the last line:
            twins with the float64 row check on every row; B = 1 must equal
            the unbatched entry point bit for bit. Also nn1 at the loop
            association shape (8 x 4096 queries flattened against one 4096-row
-           target). Timed as the kernel phase.
+           target). Timed as the kernel phase. Then gicp_kernels' gates at
+           the loop's B = 8 x 4096 (loop_methods' frames and guesses), the
+           linearization timed there.
    floor   FloorDetector on the 8 keyframe clouds: the card's clipped cloud
            against the CPU's, RANSAC card against CPU through
            fit_plane_from_triplets with the same triplets (the same inlier
@@ -115,8 +130,9 @@ before the last line:
            vertical and 0.05 m of the 1.8 m sensor height; RANSAC's
            (4096, 3) x (3, 1024) fp32 product and its whole scoring timed
            beside their bounds (fit_plane_bounds).
-   loop_methods  the loop detector's batched match with FAST_VGICP and with
-           ICP: golden_town frame 300 and 8 candidate frames around it,
+   loop_methods  the loop detector's batched match with FAST_GICP (the
+           launch default), FAST_VGICP and ICP: golden_town frame 300 and 8
+           candidate frames around it,
            _match_batched against _match_sequential on the card (transforms
            within 1e-4 m, the same flags), a repeat bit for bit, the batch of
            one bit for bit the unbatched align; ms, host syncs and device
@@ -203,8 +219,10 @@ before the last line:
 13. The kernels line (every kernel entry point, with the cli path's
    launches; the NDT kernels with ndt_main's and imu's, ndt_associate
    also with vgicp_main's and its K = 1 shape, knn_select k = 8 with
-   ndt_kdtree's; nn1, knn_select and the batched kernels with this slice's
-   VGICP, ICP and loop paths), the card's name and power limit, then the last line
+   ndt_kdtree's; nn1, knn_select and the batched kernels with the VGICP,
+   ICP and loop paths; gicp_associate and gicp_linearize with every path's
+   launches, the VGICP gate, the cost_only call and the loop's batch), the
+   card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
 Phases run in that order, every one on the card.
@@ -342,6 +360,11 @@ ICP_WITNESS = dict(prefix=64, jax_x=4.739689826965332, x_atol=0.05, jax_converge
 # the card is held to 0.25 m, five times that
 ICP_RECIPROCAL_WITNESS = dict(prefix=ICP_RECIPROCAL_FRAMES, jax_x=3.306628942489624, x_atol=0.25,
                               jax_converged_fraction=1.0, converged_atol=0.05)
+# the port's kernels profile_frames reports by name (the odometry paths' kernels)
+PORT_KERNEL_NAMES = ("nn1_kernel", "knn_select_kernel", "gicp_associate_kernel", "gicp_linearize_kernel",
+                     "ndt_associate_kernel")
+# main: the frames traced for its host syncs and device operations a frame
+MAIN_TRACED_FRAMES = 16
 # ICP frames of ~4500 device operations each: 4 traced frames, not 16 (the
 # profiler's own cost, ~2.5 s a frame, is the phase's largest part)
 ICP_TRACED_FRAMES = 4
@@ -352,10 +375,32 @@ ICP_TRACED_FRAMES = 4
 # by 1/gap; the share within 1e-4 is reported beside it)
 VGICP_MEAN_ATOL_M = 1e-5
 VGICP_COV_ATOL = 1e-3
+# GICP (registration/gicp.py, csrc/gicp.cu): the launch default's
+# correspondence gate (RegistrationConfig.reg_max_correspondence_distance)
+GICP_MAX_CORR_M = 2.5
+# kernel vs plain twin, of the largest |entry|: Mw (the kernel rounds each
+# product and sum as the plain twin's elementwise ops do, so 0 is expected;
+# the bar is the CPU tests' against the JAX package), H, b and the cost
+# (block-order float32 partials summed in float64 against the plain
+# twin's float32 einsum, as NDT_DERIV_TOL)
+GICP_MW_TOL = 1e-5
+GICP_LIN_TOL = 1e-4
+# fp32 operations the functions need: per row of the association (R C,
+# (R C) R^T + C_tgt, the adjugate and determinant, the reciprocal, the
+# scaling by 1 / det and the gate: 152 + 3), per valid row of the
+# linearization (transform 18, e 3, M e 18, cost 7, b 15, M S 27, S M S
+# 24, the 21 H sums and 9 signs 30) and of the cost alone (transform, e,
+# M e, cost)
+GICP_ASSOC_OPS_PER_ROW, GICP_LIN_OPS_PER_ROW, GICP_COST_OPS_PER_ROW = 155, 142, 46
+# registration/gicp.py wrappers: the launches' name -> the wrapper that counts them
+GICP_COUNTERS = {"gicp_associate": "associate", "gicp_linearize": "linearize", "gicp_cost": "cost"}
 # loop_methods: golden_town frame 300 and 8 frames around it (1.2 m apart)
 LOOP_TARGET_FRAME = 300
 LOOP_CANDIDATE_OFFSETS = (-12, -9, -6, -3, 3, 6, 9, 12)
 LOOP_MATCH_ATOL_M = 1e-4
+# the loop_methods phase's matchers: the launch default (the golden config's
+# loop registration as it is), then VGICP and ICP
+LOOP_METHODS = ("FAST_GICP", "FAST_VGICP", "ICP")
 # graph: PCG and Schur against the dense solve (tests/test_graph.py)
 GRAPH_SOLVER_VS_DENSE_M = 1e-5
 # PCG on the golden-sized ring, not gated against the CPU and the dense
@@ -605,7 +650,7 @@ def profile_frames(win, state0, xyz, mask, stamps, n: int, main_s_per_frame: flo
         return getattr(k, "self_device_time_total", None) or getattr(k, "self_cuda_time_total", 0.0)
     averages = [k for k in prof.key_averages() if dev_us(k) > 0]
     top = sorted(averages, key=dev_us, reverse=True)[:12]
-    port = [k for k in averages if "nn1_kernel" in k.key or "knn_select_kernel" in k.key]
+    port = [k for k in averages if any(name in k.key for name in PORT_KERNEL_NAMES)]
     return dict(phase="profile", frames=n, wall_s=wall, device_busy_s=busy * 1e-6,
                 device_busy_ms_per_frame=busy * 1e-3 / n,
                 device_idle_share_profiled=1.0 - busy * 1e-6 / wall,
@@ -1500,20 +1545,29 @@ def _ndt():
     return ndt
 
 
+def _gicp():
+    from hdl_graph_slam_tpu_torch.registration import gicp
+
+    return gicp
+
+
 def reset_launches(knn) -> None:
     for name in LAUNCH_COUNTERS:
         getattr(knn, name).launches = 0
     knn.knn_select.launches_k = dict.fromkeys(knn.KNN_SELECT_KS, 0)
     for attr in NDT_COUNTERS.values():
         getattr(_ndt(), attr).launches = 0
+    for attr in GICP_COUNTERS.values():
+        getattr(_gicp(), attr).launches = 0
 
 
 def format_launches(counts: dict, per_k: dict) -> dict:
-    """Launches per kernel entry: ``counts`` per counter of LAUNCH_COUNTERS
-    and ``ndt_<counter>`` of NDT_COUNTERS, ``per_k`` knn_select's per k; the
-    k = 20 (GICP) count goes under the plain name."""
+    """Launches per kernel entry: ``counts`` per counter of LAUNCH_COUNTERS,
+    ``ndt_<counter>`` of NDT_COUNTERS and each of GICP_COUNTERS, ``per_k``
+    knn_select's per k; the k = 20 (GICP) count goes under the plain name."""
     out = {name: counts[name] for name in LAUNCH_COUNTERS}
     out.update({f"ndt_{name}": counts.get(f"ndt_{name}", 0) for name in NDT_COUNTERS})
+    out.update({name: counts.get(name, 0) for name in GICP_COUNTERS})
     out.update({f"knn_select_k{k}": v for k, v in per_k.items() if int(k) != K_NEIGHBOURS})
     out["knn_select"] = {int(k): v for k, v in per_k.items()}[K_NEIGHBOURS]
     return out
@@ -1523,6 +1577,7 @@ def launch_counts(knn) -> dict:
     """The raw counters format_launches reads."""
     counts = {name: getattr(knn, name).launches for name in LAUNCH_COUNTERS}
     counts.update({f"ndt_{name}": getattr(_ndt(), attr).launches for name, attr in NDT_COUNTERS.items()})
+    counts.update({name: getattr(_gicp(), attr).launches for name, attr in GICP_COUNTERS.items()})
     return counts
 
 
@@ -1555,7 +1610,8 @@ def run_golden(cfg, frames, per_frame: bool = False, device_odometry: bool = Fal
 
 
 def slam_phase(knn, golden, phase: str = "slam", cfg=None, per_frame: bool = False,
-               required=("nn1", "knn_select", "nn1_batched", "knn_select_batched")) -> dict:
+               required=("nn1", "knn_select", "nn1_batched", "knn_select_batched", "gicp_associate", "gicp_linearize",
+                         "gicp_cost")) -> dict:
     """golden_town through SlamPipeline.run_windowed (or, ``per_frame``,
     run) on the card with ``cfg`` (the base config by default): the gates,
     the stage split and the launches of every kernel in ``required``."""
@@ -1936,7 +1992,7 @@ def vgicp_kernels_phase(clouds, peak_flops: float) -> dict:
     plain twin with rows identical off cell faces (float64 face rule) and
     called again bit for bit, the dense-grid call one device operation of
     that kernel; both timed, the dense-grid call beside its bound. Returns
-    the timed dense-grid row."""
+    (the timed dense-grid row, the target)."""
     import types
 
     import torch
@@ -2002,11 +2058,207 @@ def vgicp_kernels_phase(clouds, peak_flops: float) -> dict:
             require(ops == 1.0 and len(names) == 1 and "ndt_associate_kernel" in names[0],
                     f"vgicp association: a call is not one launch of ndt_associate_kernel: {r['device_ops_per_call']}")
             timed = r
+    return timed, tgt
+
+
+# -- GICP: the association and linearization kernels (csrc/gicp.cu) -----------------------
+
+
+def gicp_work(corr, B: int) -> dict:
+    """What this run's data asks of the GICP kernels, for their bounds: rows
+    (B n), valid rows, the distinct target rows the rows name (per problem,
+    summed) and those valid rows name."""
+    import torch
+
+    idx = corr.idx.reshape(B, -1).long()
+    valid = (corr.Mw.reshape(B, -1, 9) != 0).any(-1)
+    named = sum(int(torch.unique(i).numel()) for i in idx)
+    named_valid = sum(int(torch.unique(i[v]).numel()) for i, v in zip(idx, valid))
+    return dict(batch=B, rows=int(idx.numel()), valid=int(valid.sum()), named=named, named_valid=named_valid)
+
+
+def gicp_bounds(kernel: str, w: dict, peak_flops: float, found_gate: bool = False) -> tuple:
+    """(bound ms, "bytes" or "operations") of a GICP kernel on this run's
+    inputs (gicp_work's counts ``w``), each input byte read once and each
+    output byte written once. The association reads each pose (64), per
+    row the source covariance, index and gate inputs (36 + 4 + d2 and mask
+    5, or the found flag 1) and per named target row its covariance and
+    mask (37, or 36), and writes each row's Mw (36) and each count (4). The
+    linearization and the cost read each pose, each row's Mw (36: it is the
+    gate), each valid row's point and index (16) and each target point a
+    valid row names (12), and write (43 or 1) floats a problem. Operations
+    per row (association) and per valid row (GICP_*_OPS)."""
+    if kernel == "gicp_associate":
+        nbytes = (64 + 4) * w["batch"] + w["rows"] * (36 + 4 + (1 if found_gate else 5) + 36) \
+            + w["named"] * (36 if found_gate else 37)
+        ops = w["rows"] * GICP_ASSOC_OPS_PER_ROW
+    else:
+        cost_only = kernel == "gicp_cost"
+        nbytes = (64 + 4 * (1 if cost_only else 43)) * w["batch"] + 36 * w["rows"] + 16 * w["valid"] \
+            + 12 * w["named_valid"]
+        ops = w["valid"] * (GICP_COST_OPS_PER_ROW if cost_only else GICP_LIN_OPS_PER_ROW)
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / peak_flops
+    return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def rel_to_max(a, b) -> float:
+    """max |a - b| over max |b| (0 where both are 0)."""
+    d, m = float((a.double() - b.double()).abs().max()), float(b.double().abs().max())
+    return d / m if m else d
+
+
+def check_gicp(case: str, T, src, tgt_covs, tgt_xyz, idx, gate) -> dict:
+    """gicp.associate, linearize and cost against their plain twins on the
+    card for B problems at the poses T (B, 4, 4) under one search's idx
+    and gate (a gicp.DistanceGate, or found flags), each (B, n): Mw within
+    GICP_MW_TOL of its largest |entry| and num equal; H, b and cost, and
+    the cost_only call's cost, within GICP_LIN_TOL of their largest
+    |entry| (each side's distance to the plain twin in float64 reported
+    beside it: near an optimum b is a small sum of large terms, and the
+    float32 rounding of the moved points sets both sides' error); the cost_only cost bit for bit the full call's; every call
+    again bit for bit; and each problem's single call (a (4, 4) pose, its
+    own rows) bit for bit its row of the batch. Returns (the row, the
+    batched correspondences)."""
+    import torch
+
+    g = _gicp()
+    dist = isinstance(gate, g.DistanceGate)
+
+    def gate_of(b):
+        return g.DistanceGate(gate.d2[b], gate.tgt_mask, gate.max_corr_dist) if dist else gate[b]
+
+    def calls(T, src, idx, gate):
+        corr = g.associate(T, src, tgt_covs, idx, gate)
+        return corr, g.linearize(T, corr, src, tgt_xyz)[:3], g.cost(T, corr, src, tgt_xyz)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    corr, lin, cst = calls(T, src, idx, gate)
+    corr_p = g.associate_plain(T, src, tgt_covs, idx, gate)
+    lin_p = g.linearize_plain(T, corr, src, tgt_xyz)[:3]
+    cst_p = g.cost_plain(T, corr, src, tgt_xyz)
+    # the plain twin in float64 on the same inputs: how far each float32 side is from it
+    lin_64 = g.linearize_plain(T.double(), g.GicpCorr(corr.idx, corr.Mw.double(), corr.num),
+                               g.GicpCloud(src.xyz.double(), src.mask, src.covs.double()), tgt_xyz.double())[:3]
+    again = calls(T, src, idx, gate)
+    singles = [calls(T[b], g.GicpCloud(src.xyz[b], src.mask[b], src.covs[b]), idx[b], gate_of(b))
+               for b in range(T.shape[0])]
+    torch.cuda.synchronize()
+    row = dict(phase="gicp_kernels", case=case, gate="distance" if dist else "found", batch=int(T.shape[0]),
+               n=int(idx.shape[1]), valid=corr.num.tolist(), valid_plain=corr_p.num.tolist(),
+               Mw_err=rel_to_max(corr.Mw, corr_p.Mw), Mw_identical=bool(torch.equal(corr.Mw, corr_p.Mw)),
+               H_err=rel_to_max(lin[0], lin_p[0]), b_err=rel_to_max(lin[1], lin_p[1]),
+               cost_err=rel_to_max(lin[2], lin_p[2]), cost_only_err=rel_to_max(cst, cst_p),
+               f64_err=dict(kernel=[rel_to_max(a, r) for a, r in zip(lin, lin_64)],
+                            plain=[rel_to_max(a, r) for a, r in zip(lin_p, lin_64)]),
+               cost_only_identical=bool(torch.equal(cst, lin[2])),
+               repeat_identical=same(again[0], corr) and same(again[1], lin) and torch.equal(again[2], cst),
+               single_identical=all(same(c, [x[b] for x in corr]) and same(li, [x[b] for x in lin])
+                                    and torch.equal(co, cst[b]) for b, (c, li, co) in enumerate(singles)))
+    row["max_abs_err"] = float(max((lin[0] - lin_p[0]).abs().max(), (lin[1] - lin_p[1]).abs().max()))
+    emit(row)
+    what = f"gicp {case}"
+    require(row["valid"] == row["valid_plain"] and row["Mw_err"] <= GICP_MW_TOL, f"{what} association: {row}")
+    require(max(row["H_err"], row["b_err"], row["cost_err"], row["cost_only_err"]) <= GICP_LIN_TOL,
+            f"{what} linearization: {row}")
+    require(row["cost_only_identical"], f"{what}: the cost_only cost differs from the full call's: {row}")
+    require(row["repeat_identical"], f"{what}: a repeated call differs: {row}")
+    require(row["single_identical"], f"{what}: a problem's single call differs from its row of the batch: {row}")
+    return row, corr
+
+
+def gicp_kernels_phase(clouds, vtgt, peak_flops: float) -> dict:
+    """Both GICP kernels against their plain twins (check_gicp) on bench
+    frames 0 (target, gicp.preprocess) and 1 (the source) at the three
+    NDT_TWISTS poses, through GICP's nn1 search and distance gate
+    (GICP_MAX_CORR_M) and through VGICP's voxel lookup over ``vtgt``
+    (vgicp_kernels' target) and its found flags. At the first pose, each
+    wrapper call (both gates, linearize, cost) must be one device operation
+    of its kernel (device_ops_per_call), and each is timed beside its bound
+    (gicp_work, gicp_bounds). Returns the timed rows by kernel."""
+    import torch
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.registration import ndt
+
+    g = _gicp()
+    tgt, one = g.preprocess(clouds[0][0]), g.preprocess(clouds[1][0])
+    T = se3.se3_exp(torch.tensor(NDT_TWISTS, device=one.xyz.device)).contiguous()
+    B = T.shape[0]
+    src = g.GicpCloud(*[x[None].expand(B, *x.shape).contiguous() for x in (one.xyz, one.mask, one.covs)])
+    idx, d2 = g._correspond(T, src, tgt)
+    _, corr = check_gicp("bench", T, src, tgt.covs, tgt.xyz, idx, g.DistanceGate(d2, tgt.mask, GICP_MAX_CORR_M))
+    vidx, found = ndt.associate_cells(vtgt, vtgt.grid, src.xyz, src.mask, T, "DIRECT1")
+    _, vcorr = check_gicp("bench_vgicp", T, src, vtgt.covs, vtgt.means, vidx[..., 0].contiguous(),
+                          found[..., 0].contiguous())
+
+    # the first pose as the main path calls the wrappers: one problem, a (4, 4) pose
+    T0, i0, d0, f0, vi0 = T[0], idx[0], d2[0], found[0, :, 0].contiguous(), vidx[0, :, 0].contiguous()
+    c0 = g.GicpCorr(corr.idx[0], corr.Mw[0], corr.num[0])
+    gate0 = g.DistanceGate(d0, tgt.mask, GICP_MAX_CORR_M)
+    fns = dict(
+        gicp_associate=(lambda: g.associate(T0, one, tgt.covs, i0, gate0),
+                        lambda: g.associate_plain(T0, one, tgt.covs, i0, gate0)),
+        gicp_associate_vgicp=(lambda: g.associate(T0, one, vtgt.covs, vi0, f0),
+                              lambda: g.associate_plain(T0, one, vtgt.covs, vi0, f0)),
+        gicp_linearize=(lambda: g.linearize(T0, c0, one, tgt.xyz), lambda: g.linearize_plain(T0, c0, one, tgt.xyz)),
+        gicp_cost=(lambda: g.cost(T0, c0, one, tgt.xyz), lambda: g.cost_plain(T0, c0, one, tgt.xyz)))
+    ops = {name: device_ops_per_call(fn) for name, (fn, _) in fns.items()}
+    emit(dict(phase="gicp_kernels", case="device_ops_per_call", device_ops_per_call=ops))
+    kernel_of = dict(gicp_associate="gicp_associate_kernel", gicp_associate_vgicp="gicp_associate_kernel",
+                     gicp_linearize="gicp_linearize_kernel", gicp_cost="gicp_linearize_kernel")
+    require(all(n == 1.0 and len(names) == 1 and kernel_of[name] in names[0] for name, (n, names) in ops.items()),
+            f"gicp: a wrapper call is not one launch of its kernel: {ops}")
+    w = gicp_work(c0, 1)
+    wv = gicp_work(g.GicpCorr(vi0, vcorr.Mw[0], vcorr.num[0]), 1)
+    def tensors(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    out = {}
+    for name, (fn, plain) in fns.items():
+        vg = name.endswith("vgicp")
+        bound, by = gicp_bounds(name.replace("_vgicp", ""), wv if vg else w, peak_flops, found_gate=vg)
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(tensors(fn()), tensors(plain())))
+        out[name] = dict(phase="gicp_kernels", kernel=name, case="bench", max_abs_err=err, bound_ms=bound,
+                         bound_by=by, **(wv if vg else w), **time_rows(fn, plain))
+        emit(out[name])
+    return out
+
+
+def gicp_batched_phase(golden) -> dict:
+    """check_gicp at the loop detector's shape: golden_town frame
+    LOOP_TARGET_FRAME as the target and its LOOP_CANDIDATE_OFFSETS frames
+    as B = GOLDEN_B sources (the golden prefilter's 4096 rows,
+    gicp.preprocess with a leading batch), at loop_methods' truth guesses;
+    the linearization timed at that shape. Returns the timed row."""
+    import torch
+
+    g = _gicp()
+    truth = golden["truth"]
+    frames = [LOOP_TARGET_FRAME + o for o in LOOP_CANDIDATE_OFFSETS]
+    tgt = g.preprocess(golden_cloud(golden["scans"][LOOP_TARGET_FRAME]))
+    clouds = [golden_cloud(golden["scans"][i]) for i in frames]
+    from hdl_graph_slam_tpu_torch.core.cloud import PointCloud
+
+    src = g.preprocess(PointCloud(xyz=torch.stack([c.xyz for c in clouds]), mask=torch.stack([c.mask for c in clouds])))
+    guesses = []
+    for i in frames:
+        m = np.linalg.inv(truth[LOOP_TARGET_FRAME]) @ truth[i]
+        m[2, 3] = 0.0
+        guesses.append(m)
+    T = torch.from_numpy(np.stack(guesses)).float().to(src.xyz.device)
+    idx, d2 = g._correspond(T, src, tgt)
+    row, corr = check_gicp("loop_batch", T, src, tgt.covs, tgt.xyz, idx,
+                           g.DistanceGate(d2, tgt.mask, GICP_MAX_CORR_M))
+    timed = dict(phase="gicp_kernels", kernel="gicp_linearize", case="loop_batch", max_abs_err=row["max_abs_err"],
+                 **gicp_work(corr, T.shape[0]),
+                 **time_rows(lambda: g.linearize(T, corr, src, tgt.xyz), lambda: g.linearize_plain(T, corr, src, tgt.xyz)))
+    emit(timed)
     return timed
 
 
 def loop_methods_phase(golden) -> dict:
-    """The loop detector's batched match with FAST_VGICP and ICP on the
+    """The loop detector's batched match with each of LOOP_METHODS on the
     card: golden_town frame LOOP_TARGET_FRAME as the new keyframe and the
     LOOP_CANDIDATE_OFFSETS frames around it as GOLDEN_B candidates (the
     golden prefilter at its 4096 rows), guesses from the truth z-flattened
@@ -2036,7 +2288,7 @@ def loop_methods_phase(golden) -> dict:
         g[2, 3] = 0.0
         guesses.append(g)
     out = {}
-    for method in ("FAST_VGICP", "ICP"):
+    for method in LOOP_METHODS:
         cfg = course.golden_town_config().loop
         cfg.registration = dataclasses.replace(cfg.registration, registration_method=method, reg_resolution=1.0)
         det = LoopDetector(cfg)
@@ -2255,7 +2507,8 @@ CLI_CLOUD_CAPACITY = 16384
 MAP_MAX_POINTS = 1 << 21  # MapCloudGenerator.generate's default voxel cap
 CLI_TIMEOUT_S = 600
 MAP_RESOLUTION = 0.05  # the CLI's --map-resolution default
-CLI_REQUIRED = ("nn1", "knn_select", "nn1_batched", "knn_select_batched", "radius_count", "knn_select_k10")
+CLI_REQUIRED = ("nn1", "knn_select", "nn1_batched", "knn_select_batched", "radius_count", "knn_select_k10",
+                "gicp_associate", "gicp_linearize", "gicp_cost")
 # The child process runs the CLI module as ``python -m`` does (runpy,
 # run_name __main__, sys.argv set) and then writes its kernel launch counts
 # to the file named by its first argument, which it removes from sys.argv.
@@ -2940,7 +3193,7 @@ def parallel_phase(golden, loaded) -> None:
     require(any(row["converged"]), "parallel f: no candidate converged")
 
 
-def kernels_line(kres, bres, fres, nres, nimu, launches, peak_flops) -> list:
+def kernels_line(kres, bres, fres, nres, nimu, gres, launches, peak_flops) -> list:
     """One entry per kernel entry point measured in this run. ``launches``
     maps each path (main, slam, slam_floor, host, host_statistical: the
     STATISTICAL run(), host_statistical_windowed: its run_windowed twin, cli:
@@ -3085,6 +3338,35 @@ def kernels_line(kres, bres, fres, nres, nimu, launches, peak_flops) -> list:
                            device_ms=q["device_ms"], host_ms=q["host_ms"], plain_ms=q["plain_ms"],
                            bound_ms=q["bound_ms"], bound_by=q["bound_by"], library_ms=None),
         ))
+    # the GICP kernels (csrc/gicp.cu) at the main path's shape (bench frames, one problem), the
+    # association's VGICP gate and the cost_only call beside them, the loop's B = 8 under batch_shape
+    def times(r):
+        return dict(max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
+                    host_ms=r["host_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=None)
+
+    def shape(r):
+        return f"B={r['batch']} x n={r['rows'] // r['batch']} ({r['valid']} valid rows)"
+
+    lb = gres["loop_batch"]
+    lb_bound = gicp_bounds("gicp_linearize", lb, peak_flops)  # the batch's bound, from its own rows
+    for name, parts, replaces, extra in (
+            ("gicp_associate", ("gicp_associate",),
+             "hdl_graph_slam_tpu/registration/gicp.py:116 (_associate after its 1-NN search, XLA) and "
+             "registration/vgicp.py:112 (_associate after its voxel lookup)",
+             dict(vgicp_gate=dict(shape=shape(gres["gicp_associate_vgicp"]), **times(gres["gicp_associate_vgicp"])))),
+            ("gicp_linearize", ("gicp_linearize", "gicp_cost"),
+             "hdl_graph_slam_tpu/registration/gicp.py:131 (_linearize_at) and :147 (_cost_at), "
+             "registration/vgicp.py:124 and :138 (XLA)",
+             dict(cost_only=dict(shape=shape(gres["gicp_cost"]), **times(gres["gicp_cost"])),
+                  batch_shape=dict(shape=shape(lb), **times(dict(lb, bound_ms=lb_bound[0], bound_by=lb_bound[1])))))):
+        r = gres[name]
+        line.append(dict(
+            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/gicp.cu", replaces=replaces,
+            launches=sum(launches["main"][p] for p in parts),
+            launches_per_frame=sum(launches["main"][p] for p in parts) / BENCH_FRAMES,
+            launches_by_path={path: {p: v[p] for p in parts} for path, v in launches.items()},
+            shape=shape(r), valid_rows=r["valid"], named_rows=r["named"], **times(r), **extra))
     r = nres["knn_select_k8"]
     ops_s = r["valid_pairs"] * OPS_PER_PAIR / peak_flops
     bytes_s = (r["n"] * 12 + r["m"] * 12 + r["n"] * 64) / HBM_BYTES_PER_S
@@ -3240,7 +3522,10 @@ def main(argv=None) -> int:
     fres = kernel_filters_phase(knn, first_scans, [c[0] for c in clouds], rng, peak_flops)
     nimu = ndt_imu_kernels_phase(first_scans, peak_flops)
     # -- 3e. the VGICP target and its DIRECT1 association, early as well
-    nres["vgicp_associate"] = vgicp_kernels_phase(clouds, peak_flops)
+    nres["vgicp_associate"], vtgt = vgicp_kernels_phase(clouds, peak_flops)
+    # -- 3f. the GICP association and linearization kernels, early as well
+    gres = gicp_kernels_phase(clouds, vtgt, peak_flops)
+    del vtgt  # its 256^3 grid would count in main's peak memory
 
     # -- 4. main path -------------------------------------------------------
     win, first, xyz, mask, stamps = main_path(scans)
@@ -3263,6 +3548,13 @@ def main(argv=None) -> int:
         orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
         launches=launches["main"], peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
+    # host syncs and device operations a frame over MAIN_TRACED_FRAMES frames, as window_phase
+    _, syncs = count_host_syncs(lambda: win.run(state0, xyz[:MAIN_TRACED_FRAMES], mask[:MAIN_TRACED_FRAMES],
+                                                stamps[:MAIN_TRACED_FRAMES])[1].cpu())
+    main_row["host_syncs_per_frame"] = syncs / MAIN_TRACED_FRAMES
+    prof = profile_frames(win, state0, xyz, mask, stamps, MAIN_TRACED_FRAMES, dt / BENCH_FRAMES)
+    main_row.update({k: prof[k] for k in ("device_ops_per_frame", "device_busy_ms_per_frame",
+                                          "device_idle_share_unprofiled", "top_device", "port_kernels")})
     emit(main_row)
     # bench.py:196-212
     require(bool(np.isfinite(odoms).all()), "non-finite pose")
@@ -3270,7 +3562,8 @@ def main(argv=None) -> int:
     require(main_row["converged_fraction"] > 0.9, f"only {main_row['converged_fraction']:.0%} of frames converged")
     require(main_row["det_err"] < 1e-4, f"det(R) drift {main_row['det_err']:.2e}")
     require(main_row["orth_err"] < 1e-4, f"orthogonality error {main_row['orth_err']:.2e}")
-    require(launches["main"]["knn_select"] >= BENCH_FRAMES and launches["main"]["nn1"] >= BENCH_FRAMES,
+    require(all(launches["main"][k] >= BENCH_FRAMES for k in ("knn_select", "nn1", "gicp_associate",
+                                                                 "gicp_linearize", "gicp_cost")),
             f"main path did not go through the kernels: {launches['main']}")
 
     if args.profile:
@@ -3285,8 +3578,10 @@ def main(argv=None) -> int:
 
     # -- 4c. the same course with FAST_VGICP and with ICP, held to the JAX package's run
     launches["vgicp_main"], _ = window_phase(
-        knn, scans, "vgicp_main", VGICP_MAIN_REG, BENCH_FRAMES, ("ndt_associate", "knn_select"),
-        per_frame=("ndt_associate", "knn_select"), witness=VGICP_WITNESS)
+        knn, scans, "vgicp_main", VGICP_MAIN_REG, BENCH_FRAMES, ("ndt_associate", "knn_select", "gicp_associate",
+                                                                 "gicp_linearize", "gicp_cost"),
+        per_frame=("ndt_associate", "knn_select", "gicp_associate", "gicp_linearize", "gicp_cost"),
+        witness=VGICP_WITNESS)
     launches["icp_main"], _ = window_phase(knn, scans, "icp_main", ICP_MAIN_REG, BENCH_FRAMES, ("nn1",),
                                            per_frame=("nn1",), witness=ICP_WITNESS, drift_gate=False,
                                            traced=ICP_TRACED_FRAMES)
@@ -3301,6 +3596,7 @@ def main(argv=None) -> int:
     # -- 6. batched kernels at the loop shapes; floor ----------
     keyframes = golden_keyframes(golden)
     bres = kernel_batched_phase(knn, golden, keyframes)
+    gres["loop_batch"] = gicp_batched_phase(golden)
     floor_phase(keyframes, peak_flops)
     launches.update({f"loop_{m}": v for m, v in loop_methods_phase(golden).items()})
 
@@ -3333,7 +3629,7 @@ def main(argv=None) -> int:
 
     # -- 13. kernels line ------------------------------------------------------
     emit(dict(phase="done"))
-    emit({"kernels": kernels_line(kres, bres, fres, nres, nimu, launches, peak_flops)})
+    emit({"kernels": kernels_line(kres, bres, fres, nres, nimu, gres, launches, peak_flops)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,8 +7,8 @@ a plain C interface, at first use, under ``hdl_graph_slam_tpu_torch/_build/``
 
 There is no fallback here: a missing ``nvcc`` or a failed build raises.
 Callers reach this module only for CUDA tensors (ops/knn.py,
-registration/ndt.py); CPU tensors take the plain PyTorch versions beside
-the wrappers.
+registration/ndt.py, registration/gicp.py); CPU tensors take the plain
+PyTorch versions beside the wrappers.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-SOURCES = ("knn", "ndt")  # csrc/<name>.cu
+SOURCES = ("knn", "ndt", "gicp")  # csrc/<name>.cu
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -108,6 +108,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.hgs_ndt_derivatives.restype = i
         lib.hgs_ndt_score.argtypes = [p, p, p, i, i, i, i, p, p, p, f, f, i, p, p, p, p]
         lib.hgs_ndt_score.restype = i
+    elif name == "gicp":
+        f = ctypes.c_float
+        lib.hgs_gicp_associate.argtypes = [p, i, i, p, p, p, p, p, p, f, p, p, p, p, p]
+        lib.hgs_gicp_associate.restype = i
+        lib.hgs_gicp_linearize.argtypes = [p, i, i, p, p, p, p, i, i, p, p, p, p]
+        lib.hgs_gicp_linearize.restype = i
 
 
 def stream(x) -> int:

@@ -21,6 +21,7 @@ GPU must ask for gloo, whose all-reduce takes CUDA tensors.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple, Union
 
 import torch
@@ -38,15 +39,29 @@ def initialize(coordinator_address: str, num_processes: int, process_id: int,
     ``num_processes``. ``coordinator_address`` is ``"host:port"`` (read as
     ``tcp://host:port``) or a URL passed on as it is (``tcp://...``,
     ``file://...``). ``device`` (None = cuda) picks the backend: NCCL for
-    CUDA, gloo for the CPU; ``backend`` overrides that. Returns the backend."""
+    CUDA, gloo for the CPU; ``backend`` overrides that. A CUDA device
+    without an index becomes this process's card, ``cuda:<local rank>``
+    (``local_device_index``), which is made the current device. Returns the
+    backend."""
     dev = resolve_device(device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     url = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
-    if dev.type == "cuda" and dev.index is not None:
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", local_device_index(process_id))
         torch.cuda.set_device(dev)
     tdist.init_process_group(backend=backend, init_method=url, world_size=num_processes, rank=process_id)
     return backend
+
+
+def local_device_index(process_id: int) -> int:
+    """The card of process ``process_id`` on its box: ``LOCAL_RANK`` where
+    the launcher sets it (torchrun does), else the rank modulo the box's
+    cards, so that the ranks of a box spread over its cards (NCCL refuses
+    two ranks on one)."""
+    local = os.environ.get("LOCAL_RANK")
+    return int(local) if local is not None else process_id % torch.cuda.device_count()
 
 
 def _all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:

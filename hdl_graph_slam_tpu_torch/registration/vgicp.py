@@ -13,8 +13,10 @@ FAST_VGICP_CUDA): reg_resolution voxel size, otherwise GICP parameters.
 - Each source point matches the voxel that contains it: the DIRECT1 lookup
   of ``ndt.associate_cells`` (``ndt_associate_kernel<1>`` on the card; a
   dense-grid read, or the int32 key search without a grid).
-- Then the distribution-to-distribution Mahalanobis LM of GICP
-  (base.lm_loop_batched with the linearization of gicp.py).
+- ``gicp.associate`` with the lookup's found flags as its gate
+  (``gicp_associate_kernel``), then the distribution-to-distribution
+  Mahalanobis LM of GICP (base.lm_loop_batched) through ``gicp.linearize``
+  and ``gicp.cost`` against the voxel means (``gicp_linearize_kernel``).
 
 ``align`` takes one source or a leading batch of B sources against one
 target (the loop detector's candidates), with the semantics of ``jax.vmap``
@@ -31,9 +33,9 @@ import torch
 
 from ..core.cloud import PAD_COORD, PointCloud
 from ..ops import voxel as voxelops
-from . import ndt
+from . import gicp, ndt
 from .base import AlignResult, lm_loop_batched
-from .gicp import GicpCloud, GicpCorr, _cost_points, _inv3x3, _linearize_points
+from .gicp import GicpCloud, GicpCorr
 from .gicp import preprocess as gicp_preprocess
 
 _INVALID_KEY = voxelops._LOCAL_INVALID
@@ -82,13 +84,10 @@ def preprocess_target(cloud: PointCloud, resolution: float, max_voxels: int = 81
 
 def _associate(T: torch.Tensor, src: GicpCloud, tgt: VgicpTarget) -> GicpCorr:
     """Voxel correspondences + Mahalanobis at the poses T (B, 4, 4) of the B
-    sources (B, N, 3): one association launch for all of them."""
+    sources (B, N, 3): one voxel lookup and one association launch for all
+    of them."""
     idx, found = ndt.associate_cells(tgt, tgt.grid, src.xyz, src.mask, T, "DIRECT1")
-    idx, found = idx[..., 0], found[..., 0]
-    R = T[..., None, :3, :3]
-    RCA = R @ src.covs @ R.transpose(-1, -2)
-    Mw = _inv3x3(tgt.covs[idx] + RCA) * found.to(T.dtype)[..., None, None]
-    return GicpCorr(idx=idx, Mw=Mw, num=found.sum(-1, dtype=torch.int32))
+    return gicp.associate(T, src, tgt.covs, idx[..., 0], found[..., 0])
 
 
 def align(
@@ -118,8 +117,8 @@ def align(
 
     out = lm_loop_batched(
         associate=associate_rows,
-        linearize_at=lambda T, corr: _linearize_points(T, corr, src, tgt.means),
-        cost_at=lambda T, corr: _cost_points(T, corr, src, tgt.means),
+        linearize_at=lambda T, corr: gicp.linearize(T, corr, src, tgt.means),
+        cost_at=lambda T, corr: gicp.cost(T, corr, src, tgt.means),
         guess=guess,
         max_iterations=max_iterations,
         transformation_epsilon=transformation_epsilon,

@@ -826,3 +826,116 @@ def test_run_ranks_stops_failed_and_hung_ranks(tmp_path, monkeypatch):
         chip_smoke.run_ranks(arrays, str(tmp_path / "hung"), world=2, device="cpu", backend="gloo", iterations=2,
                              timeout_s=1.0)
     assert time.perf_counter() - t0 < 30
+
+
+def test_launch_counts_read_the_gicp_wrappers():
+    """The GICP wrappers' counters appear under chip_smoke.GICP_COUNTERS'
+    names (the CLI child hands them back too); reset_launches zeroes them."""
+    from hdl_graph_slam_tpu_torch.registration import gicp
+
+    gicp.associate.launches, gicp.linearize.launches, gicp.cost.launches = 2, 3, 4
+    got = chip_smoke.read_launches(knn)
+    assert (got["gicp_associate"], got["gicp_linearize"], got["gicp_cost"]) == (2, 3, 4)
+    assert set(chip_smoke.GICP_COUNTERS) <= set(chip_smoke.CLI_REQUIRED)
+    chip_smoke.reset_launches(knn)
+    assert set(chip_smoke.read_launches(knn).values()) == {0}
+
+
+def test_gicp_bounds_take_the_larger_of_bytes_and_operations():
+    """The association reads each row's covariance, index and gate inputs
+    and each named target row once and writes each row's Mw; the
+    linearization reads every row's Mw (its gate) and the point, index and
+    named target point of valid rows. Both move bytes at the H100's rates;
+    at a thousandth of its fp32 peak their operations bound them."""
+    peak, hbm = 66.9e12, chip_smoke.HBM_BYTES_PER_S
+    w = dict(batch=1, rows=8192, valid=6373, named=5387, named_valid=5139)
+    ms, by = chip_smoke.gicp_bounds("gicp_associate", w, peak)
+    assert by == "bytes" and ms == pytest.approx(1e3 * (68 + 8192 * 81 + 5387 * 37) / hbm)
+    ms, by = chip_smoke.gicp_bounds("gicp_associate", w, peak, found_gate=True)
+    assert by == "bytes" and ms == pytest.approx(1e3 * (68 + 8192 * 77 + 5387 * 36) / hbm)
+    reads = 36 * 8192 + 16 * 6373 + 12 * 5139
+    ms, by = chip_smoke.gicp_bounds("gicp_linearize", w, peak)
+    assert by == "bytes" and ms == pytest.approx(1e3 * (64 + 43 * 4 + reads) / hbm)
+    assert chip_smoke.gicp_bounds("gicp_cost", w, peak)[0] == pytest.approx(1e3 * (64 + 4 + reads) / hbm)
+    slow = peak / 1000
+    ms, by = chip_smoke.gicp_bounds("gicp_linearize", w, slow)
+    assert by == "operations" and ms == pytest.approx(1e3 * 6373 * chip_smoke.GICP_LIN_OPS_PER_ROW / slow)
+    ms, by = chip_smoke.gicp_bounds("gicp_associate", w, slow)
+    assert by == "operations" and ms == pytest.approx(1e3 * 8192 * chip_smoke.GICP_ASSOC_OPS_PER_ROW / slow)
+
+
+def gicp_problems(B=2, n=600):
+    """B sources (points on two planes, a padded tail) against one target,
+    GICP-preprocessed on the CPU, at poses near the identity, with one
+    search's idx and d2."""
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.core.cloud import PointCloud
+    from hdl_graph_slam_tpu_torch.registration import gicp
+
+    rng = np.random.default_rng(17)
+
+    def cloud(n_pad):
+        u = rng.uniform(-5.0, 5.0, (n, 2))
+        wall = rng.random(n) < 0.5
+        xyz = np.where(wall[:, None], np.stack([u[:, 0], np.full(n, 4.0), u[:, 1] + 5.0], 1),
+                       np.stack([u[:, 0], u[:, 1], np.zeros(n)], 1)) + rng.normal(0.0, 0.02, (n, 3))
+        xyz[n - n_pad:] = 1.0e6
+        return PointCloud(xyz=torch.from_numpy(xyz.astype(np.float32)), mask=torch.arange(n) < n - n_pad)
+
+    tgt = gicp.preprocess(cloud(40))
+    src = gicp.preprocess(PointCloud(*[torch.stack(x) for x in zip(*[(c.xyz, c.mask) for c in
+                                                                     (cloud(40 + 30 * b) for b in range(B))])]))
+    T = se3.se3_exp(torch.from_numpy(rng.normal(0.0, 0.05, (B, 6)).astype(np.float32)))
+    idx, d2 = gicp._correspond(T, src, tgt)
+    return gicp, tgt, src, T, idx, d2
+
+
+def test_check_gicp_gates_the_kernels_against_the_plain_twins(monkeypatch):
+    """check_gicp passes wrappers that compute the plain twins' function
+    with batch-invariant rows (the kernels' property; here a per-problem
+    plain call stands in, since the plain einsum's b is not), for both
+    gates, and fails a linearization off by 1e-3 of its largest entry and
+    rows that depend on the batch."""
+    gicp, tgt, src, T, idx, d2 = gicp_problems()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    def per_problem(T, corr, src, tgt_xyz):
+        if T.ndim == 2:
+            return gicp.linearize_plain(T, corr, src, tgt_xyz)
+        rows = [gicp.linearize_plain(T[b], gicp.GicpCorr(*[x[b] for x in corr]),
+                                     gicp.GicpCloud(src.xyz[b], src.mask[b], src.covs[b]), tgt_xyz)
+                for b in range(T.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*rows))
+
+    monkeypatch.setattr(gicp, "linearize", per_problem)
+    gate = gicp.DistanceGate(d2, tgt.mask, chip_smoke.GICP_MAX_CORR_M)
+    row, corr = chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, gate)
+    assert row["Mw_identical"] and row["single_identical"] and row["repeat_identical"] and row["cost_only_identical"]
+    assert row["valid"] == corr.num.tolist() and min(row["valid"]) > 400
+    row, _ = chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, d2 < 0.01)
+    assert row["gate"] == "found" and row["valid"] == (d2 < 0.01).sum(-1).tolist()
+
+    def off(T, corr, src, tgt_xyz):
+        H, b, c, n = per_problem(T, corr, src, tgt_xyz)
+        return H + 1e-3 * H.abs().amax((-1, -2), keepdim=True), b, c, n
+
+    monkeypatch.setattr(gicp, "linearize", off)
+    with pytest.raises(RuntimeError, match="linearization"):
+        chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, gate)
+    monkeypatch.setattr(gicp, "linearize", gicp.linearize_plain)  # b's rows depend on the batch on the CPU
+    with pytest.raises(RuntimeError, match="single call"):
+        chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, gate)
+
+
+def test_gicp_work_counts_valid_and_named_rows():
+    """gicp_work on a plain association: the valid rows are those with a
+    nonzero Mw (num), the named rows the distinct target indices per
+    problem, all rows' and the valid rows'."""
+    gicp, tgt, src, T, idx, d2 = gicp_problems()
+    corr = gicp.associate_plain(T, src, tgt.covs, idx, gicp.DistanceGate(d2, tgt.mask, 1.0))
+    w = chip_smoke.gicp_work(corr, 2)
+    valid = src.mask & tgt.mask[idx] & (d2 < 1.0)
+    assert w == dict(batch=2, rows=1200, valid=int(corr.num.sum()),
+                     named=sum(len(np.unique(i)) for i in idx.numpy()),
+                     named_valid=sum(len(np.unique(i[v])) for i, v in zip(idx.numpy(), valid.numpy())))
+    assert w["valid"] == int(valid.sum())

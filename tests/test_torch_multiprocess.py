@@ -12,10 +12,13 @@ same sums, and each rank then solves the same system).
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 import chip_smoke
 from hdl_graph_slam_tpu.graph.solver import optimize as joptimize
 from hdl_graph_slam_tpu_torch import state
+from hdl_graph_slam_tpu_torch.parallel import multihost
 from mp_worker import build_graph
 
 RANKS_TIMEOUT_S = 120  # fails the test instead of holding its worker
@@ -41,3 +44,26 @@ def test_two_process_distributed_optimize(tmp_path):
     assert abs(float(r["chi2_robust_after"]) - float(ref_stats.chi2_robust_after)) < 1e-6 * (
         1.0 + float(ref_stats.chi2_robust_after)
     )
+
+
+@pytest.mark.parametrize("local_rank, process_id, expected", [(None, 0, 0), (None, 5, 1), (None, 3, 3),
+                                                               ("2", 5, 2), ("0", 3, 0)])
+def test_initialize_puts_each_rank_on_its_own_card(monkeypatch, local_rank, process_id, expected):
+    """With device None (cuda) on a box of four cards, initialize makes
+    cuda:<LOCAL_RANK> current, else cuda:<rank % 4>; an explicit index is
+    kept. torch.cuda and the process group are stand-ins here."""
+    chosen, joined = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: chosen.append(torch.device(d)))
+    monkeypatch.setattr(multihost.tdist, "init_process_group", lambda **kw: joined.append(kw))
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    assert multihost.initialize("localhost:1234", 8, process_id) == "nccl"
+    assert chosen == [torch.device("cuda", expected)]
+    assert joined == [dict(backend="nccl", init_method="tcp://localhost:1234", world_size=8, rank=process_id)]
+    chosen.clear()
+    multihost.initialize("localhost:1234", 8, process_id, device="cuda:3", backend="gloo")
+    assert chosen == [torch.device("cuda", 3)]

@@ -237,8 +237,8 @@ def test_vgicp_linearization_matches_jax():
     corr = vgicp._associate(T[None], gicp.GicpCloud(sp.xyz[None], sp.mask[None], sp.covs[None]), tp)
     corr_j = jvgicp._associate(Tj, sj, tj)
     assert int(corr.num[0]) == int(corr_j.num)
-    H, b, cost, _ = gicp._linearize_points(T[None], corr, gicp.GicpCloud(sp.xyz[None], sp.mask[None], sp.covs[None]),
-                                           tp.means)
+    H, b, cost, _ = gicp.linearize(T[None], corr, gicp.GicpCloud(sp.xyz[None], sp.mask[None], sp.covs[None]),
+                                   tp.means)
     H_j, b_j, cost_j, _ = jvgicp._linearize_at(Tj, corr_j, sj, tj)
     H_j, b_j = np.asarray(H_j), np.asarray(b_j)
     assert np.abs(H[0].numpy() - H_j).max() <= 1e-4 * np.abs(H_j).max()
