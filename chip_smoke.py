@@ -41,7 +41,9 @@ before the last line:
            Timed as the kernel phase, with each kernel's bound from the
            bytes and operations this run's inputs need (ndt_work,
            ndt_bounds), and each wrapper call one device operation in a
-           torch.profiler trace (device_ops_per_call).
+           torch.profiler trace (device_ops_per_call; where every retaken
+           trace comes back short, counted by CUDA graph capture instead,
+           graph_ops_per_call, and both counts emitted as a device_ops row).
    kernel_filters  (on golden_town frames 0 and 1, cast in the process;
            run here, early, because later in a long process torch.profiler
            traces lost device events) radius_count against its plain twin
@@ -72,23 +74,30 @@ before the last line:
            (ndt.associate_cells), through the grid and the key search,
            against the plain twin off cell faces (float64 face rule), again
            bit for bit, one device operation a call; timed beside its bound.
-   gicp_kernels  (early too) the GICP association and linearization
-           kernels (csrc/gicp.cu) against their plain twins on bench frames
-           0 (target) and 1 (source) at the three NDT_TWISTS poses, through
-           GICP's nn1 search and 2.5 m gate and through VGICP's voxel lookup
-           over vgicp_kernels' target: Mw within 1e-5 of its largest |entry|
-           and the same counts, H, b and the cost within 1e-4, the cost_only
-           call's cost bit for bit the full call's, every call again bit for
-           bit, each problem's single call bit for bit its row of the batch
-           of 3; each wrapper call one device operation of its kernel; timed
-           beside its bound (gicp_work, gicp_bounds). The same gates at the
-           loop detector's B = 8 x 4096 run after kernel_batched.
+   gicp_kernels  (early too) the GICP kernel's four forms (csrc/gicp.cu
+           gicp_step_kernel: associate, linearize, cost, and associate and
+           linearize fused) on bench frames 0 (target) and 1 (source) at the
+           three NDT_TWISTS poses, through GICP's nn1 search and 2.5 m gate
+           and through VGICP's voxel lookup over vgicp_kernels' target: Mw
+           within 1e-5 of the plain twin's largest |entry| and the same
+           counts; H, b and the cost within 1e-4 of the float64 twin's (the
+           plain float32 twin's distance beside it); the fused call bit for
+           bit the association then the linearization; the linearization at
+           a damped step's trial pose (the gated loop's carried H, b and
+           cost) bit for bit a fresh call there; the cost form's cost bit
+           for bit the full call's; every call again, and each problem's
+           single call as its row of the batch of 3, bit for bit; each
+           wrapper call one device operation of the kernel; the prepared
+           calls the LM loop launches timed beside their bounds (gicp_work,
+           gicp_bounds). The same gates at the loop detector's B = 8 x 4096
+           run after kernel_batched.
 4. main    bench.py's windowed FAST_GICP odometry (its configs, its course
            with seed 0, 16384-row raw scans, 8192-row filtered clouds) through
            the port's OdometryWindow on cuda, with bench.py's gates; kernel
            launch counts are read around this run (nn1, knn_select and the
-           GICP kernels at least once a frame); host syncs and device
-           operations a frame over 16 more frames, as window_phase.
+           GICP kernel's fused and linearize forms at least once a frame, at
+           most 1 + 2 x LM iterations GICP launches a frame); host syncs and
+           device operations a frame over 16 more frames, as window_phase.
    With --profile, torch.profiler then traces 16 more frames: device busy
    time, kernels launched per frame, the top kernels by device time and the
    port's own kernels' device time per launch, and
@@ -107,7 +116,7 @@ before the last line:
            association and knn_select launched at least once a frame, and
            the x at frame 64 within VGICP_WITNESS's tolerance of the JAX
            package's on the CPU (tools/method_witness.py). icp_main: ICP
-           over the same 256 frames, nn1 once a frame at least, the x and
+           over the first 128 frames, nn1 once a frame at least, the x and
            converged share at frame 64 against the JAX run; not gated on
            the 3% (the reference's point-to-point ICP drifts ~10.6% here,
            PERF_JAX_REFERENCE.md:300). icp_reciprocal: 32 frames with
@@ -122,7 +131,7 @@ before the last line:
            association shape (8 x 4096 queries flattened against one 4096-row
            target). Timed as the kernel phase. Then gicp_kernels' gates at
            the loop's B = 8 x 4096 (loop_methods' frames and guesses), the
-           linearization timed there.
+           fused and linearize forms timed there.
    floor   FloorDetector on the 8 keyframe clouds: the card's clipped cloud
            against the CPU's, RANSAC card against CPU through
            fit_plane_from_triplets with the same triplets (the same inlier
@@ -154,7 +163,7 @@ before the last line:
            host syncs per optimize cycle, kernel launches on the path and the
            peak device memory. Gates: det/orth < 1e-4 on every odometry pose,
            >= 2 loop edges, optimized ATE below the odometry keyframes' ATE.
-           Then slam_profile: torch.profiler over one odometry stretch (48
+           Then slam_profile: torch.profiler over one odometry stretch (16
            frames of a fresh pipeline), one batched loop match and one graph
            solve of the finished run: device busy time and idle share of each.
 9. slam_floor  golden_town "floor" through run_windowed, the slam gates plus
@@ -208,7 +217,7 @@ before the last line:
            (a)) and on 4 entries of cuda:0 (1e-6 m, chi2 1e-9); (d)
            distributed_optimize_multihost in child processes, two gloo ranks
            on cuda:0 (bit-identical ranks, 1e-5 m, chi2 1e-6) and one NCCL
-           rank (1e-9 m); (e) run_windowed over golden_town's first 120
+           rank (1e-9 m); (e) run_windowed over golden_town's first 64
            frames (floor) dense, submap_block_size 8 and distributed: the
            same keyframes, distributed 1e-6 m from dense, submap ATE <= 1.5
            x dense + 0.05 m and its chi2 below the odometry chain's (no
@@ -220,8 +229,9 @@ before the last line:
    launches; the NDT kernels with ndt_main's and imu's, ndt_associate
    also with vgicp_main's and its K = 1 shape, knn_select k = 8 with
    ndt_kdtree's; nn1, knn_select and the batched kernels with the VGICP,
-   ICP and loop paths; gicp_associate and gicp_linearize with every path's
-   launches, the VGICP gate, the cost_only call and the loop's batch), the
+   ICP and loop paths; gicp_associate_linearize (the fused form, the
+   associate-only form beside it) and gicp_linearize (the cost form beside
+   it) with every path's launches, the VGICP gate and the loop's batch), the
    card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
 
@@ -361,13 +371,20 @@ ICP_WITNESS = dict(prefix=64, jax_x=4.739689826965332, x_atol=0.05, jax_converge
 ICP_RECIPROCAL_WITNESS = dict(prefix=ICP_RECIPROCAL_FRAMES, jax_x=3.306628942489624, x_atol=0.25,
                               jax_converged_fraction=1.0, converged_atol=0.05)
 # the port's kernels profile_frames reports by name (the odometry paths' kernels)
-PORT_KERNEL_NAMES = ("nn1_kernel", "knn_select_kernel", "gicp_associate_kernel", "gicp_linearize_kernel",
-                     "ndt_associate_kernel")
+PORT_KERNEL_NAMES = ("nn1_kernel", "knn_select_kernel", "gicp_step_kernel", "ndt_associate_kernel")
 # main: the frames traced for its host syncs and device operations a frame
 MAIN_TRACED_FRAMES = 16
+# slam_profile: golden_town frames traced through run_windowed, one window
+# of GOLDEN_WINDOW and its optimize cycle (the profiler's own cost is most
+# of the phase, and the run must stay inside its time limit on a slower
+# host)
+SLAM_PROFILE_FRAMES = 16
 # ICP frames of ~4500 device operations each: 4 traced frames, not 16 (the
 # profiler's own cost, ~2.5 s a frame, is the phase's largest part)
 ICP_TRACED_FRAMES = 4
+# icp_main's frames: its gates read frame 64 (ICP_WITNESS); fewer than the
+# bench's 256 keep the run inside its time limit on a slower host
+ICP_MAIN_FRAMES = 128
 # vgicp_kernels, preprocess_target card vs CPU on one cloud: voxel sums in
 # row order on both (float32, rounding only); every voxel covariance within
 # test_torch_gicp.py's every-row bound on the point covariances (their
@@ -378,11 +395,13 @@ VGICP_COV_ATOL = 1e-3
 # GICP (registration/gicp.py, csrc/gicp.cu): the launch default's
 # correspondence gate (RegistrationConfig.reg_max_correspondence_distance)
 GICP_MAX_CORR_M = 2.5
-# kernel vs plain twin, of the largest |entry|: Mw (the kernel rounds each
+# of the largest |entry|: Mw against the plain twin (the kernel rounds each
 # product and sum as the plain twin's elementwise ops do, so 0 is expected;
-# the bar is the CPU tests' against the JAX package), H, b and the cost
-# (block-order float32 partials summed in float64 against the plain
-# twin's float32 einsum, as NDT_DERIV_TOL)
+# the bar is the CPU tests' against the JAX package); H, b and the cost
+# against the plain twin in float64 on the same inputs (block-order float32
+# partials summed in float64, as NDT_DERIV_TOL; near an optimum b is a small
+# sum of large terms, and gating against the plain float32 twin would read
+# that twin's own rounding of the moved points)
 GICP_MW_TOL = 1e-5
 GICP_LIN_TOL = 1e-4
 # fp32 operations the functions need: per row of the association (R C,
@@ -392,8 +411,13 @@ GICP_LIN_TOL = 1e-4
 # 24, the 21 H sums and 9 signs 30) and of the cost alone (transform, e,
 # M e, cost)
 GICP_ASSOC_OPS_PER_ROW, GICP_LIN_OPS_PER_ROW, GICP_COST_OPS_PER_ROW = 155, 142, 46
-# registration/gicp.py wrappers: the launches' name -> the wrapper that counts them
-GICP_COUNTERS = {"gicp_associate": "associate", "gicp_linearize": "linearize", "gicp_cost": "cost"}
+# registration/gicp.py wrappers: the launches' name -> the wrapper that counts
+# them (each a form of gicp_step_kernel)
+GICP_COUNTERS = {"gicp_associate_linearize": "associate_linearize", "gicp_associate": "associate",
+                 "gicp_linearize": "linearize", "gicp_cost": "cost"}
+# the GICP forms the gated LM loop launches (main, the golden_town runs) and
+# the ungated one (vgicp_main, the cli's outdoor preset)
+GICP_GATED, GICP_UNGATED = ("gicp_associate_linearize", "gicp_linearize"), ("gicp_associate_linearize", "gicp_cost")
 # loop_methods: golden_town frame 300 and 8 frames around it (1.2 m apart)
 LOOP_TARGET_FRAME = 300
 LOOP_CANDIDATE_OFFSETS = (-12, -9, -6, -3, 3, 6, 9, 12)
@@ -669,30 +693,92 @@ def device_events(prof) -> list:
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ops_per_call(fn, calls: int = 10, pad_s: float = 0.05, tries: int = 5) -> tuple:
+def graph_ops_per_call(fn, calls: int = 10):
+    """(operations per call of fn, {CUgraphNodeType: nodes}) counted a way
+    torch.profiler does not share: ``calls`` calls captured into one CUDA
+    graph on a side stream (after a warm-up call there, so that the
+    kernels' workspaces of that stream exist), its nodes counted with the
+    libcuda's cuGraphGetNodes. Every kernel, copy and set the calls enqueue
+    is a node, and a host read or a launch on another stream fails the
+    capture. None where this torch keeps no captured graph or the capture
+    fails."""
+    import ctypes
+
+    import torch
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except (TypeError, RuntimeError):  # an older torch; no CUDA
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                fn()
+        cu = ctypes.CDLL("libcuda.so.1")
+        count = ctypes.c_size_t(0)
+        handle = ctypes.c_void_p(graph.raw_cuda_graph())
+        if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+            return None
+        nodes = (ctypes.c_void_p * max(count.value, 1))()
+        if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+            return None
+        types = {}
+        for k in range(count.value):
+            kind = ctypes.c_int(-1)
+            cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[k]), ctypes.byref(kind))
+            types[kind.value] = types.get(kind.value, 0) + 1
+        return count.value / calls, types
+    except Exception:  # noqa: BLE001  (a failed capture is no count)
+        return None
+    finally:
+        graph.reset()
+        torch.cuda.synchronize()
+
+
+def device_ops_per_call(fn, calls: int = 10, pad_s: float = 0.05, tries: int = 8) -> tuple:
     """(device operations per call of fn, their names): torch.profiler over
     ``calls`` calls after a warm-up call (profile_frames' count). The window
     is padded with ``pad_s`` seconds of idle host on both sides, and a trace
     that holds fewer device events than calls is taken again, up to
-    ``tries`` times: late in a long process, traces of a few microseconds
-    were seen to come back without some or all of the device events of the
-    calls they held (a call that launches nothing is not a case to time)."""
+    ``tries`` times, its pads doubled each time (at most 0.8 s): late in a
+    long process, traces of a few microseconds were seen to come back
+    without some or all of the device events of the calls they held (a
+    call that launches nothing is not a case to time). When every trace
+    comes back short, the calls are counted again by CUDA graph capture
+    (graph_ops_per_call), and that count is returned where it is a whole
+    number of kernel nodes a call; the names stay the traces'. Both counts
+    are emitted as a ``device_ops`` row, the record of what the profiler
+    lost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
+        pad = min(pad_s * 2 ** attempt, 0.8)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(pad_s)
+            time.sleep(pad)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(pad_s)
+            time.sleep(pad)
         events = device_events(prof)
         if len(events) >= calls:
             break
-    return len(events) / calls, sorted({e.name[:80] for e in events})
+    per, names = len(events) / calls, sorted({e.name[:80] for e in events})
+    if len(events) < calls:
+        graph = graph_ops_per_call(fn, calls)
+        emit(dict(phase="device_ops", traces=tries, profiler_ops_per_call=per, names=names,
+                  graph_ops_per_call=None if graph is None else graph[0],
+                  graph_node_types=None if graph is None else {str(k): v for k, v in graph[1].items()}))
+        if graph is not None and graph[0] >= 1 and graph[0] == int(graph[0]) and set(graph[1]) == {0}:
+            per = graph[0]
+    return per, names
 
 
 # -- golden_town -----------------------------------------------------------------
@@ -710,6 +796,30 @@ def _golden_scan(i: int) -> np.ndarray:
         _SCENE = (*course.golden_town_scene(), course.golden_town_sensor_poses(), lidar_sim)
     town, model, poses, lidar_sim = _SCENE
     return lidar_sim.scan(town, poses[i], model, seed=i)
+
+
+_BENCH = None
+
+
+def _bench_scan(i: int) -> np.ndarray:
+    """Ray-cast bench course frame i (a process-pool worker): make_course's
+    scan i."""
+    global _BENCH
+    if _BENCH is None:
+        sys.path.insert(0, HERE)
+        from hdl_graph_slam_tpu_torch.utils import course, lidar_sim
+
+        _BENCH = (*course.bench_course_scene(SEED), course.bench_course_poses(course.BENCH_FRAMES, course.BENCH_STEP,
+                                                                              SEED), lidar_sim)
+    town, model, poses, lidar_sim = _BENCH
+    return lidar_sim.scan(town, poses[i], model, seed=100000 * SEED + i)
+
+
+def bench_scans(n: int, workers: int) -> list:
+    """make_course(n)'s n + 1 scans (n <= BENCH_FRAMES), cast in ``workers``
+    spawned processes."""
+    with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(_bench_scan, range(n + 1), chunksize=8))
 
 
 def golden_scans(n: int, workers: int) -> list:
@@ -1153,7 +1263,7 @@ def graph_solvers() -> None:
 
 def slam_profile(pipe, frames) -> None:
     """Device busy time and idle share of the slam path's stages, each
-    traced on its own with torch.profiler: 48 frames of a fresh pipeline
+    traced on its own with torch.profiler: SLAM_PROFILE_FRAMES frames of a fresh pipeline
     (odometry windows and their optimize cycles), one batched loop match of
     the finished run (its last keyframe against its candidates) and one
     graph solve of the finished graph."""
@@ -1171,16 +1281,17 @@ def slam_profile(pipe, frames) -> None:
     try:
         fresh = SlamPipeline(pipe.cfg, cloud_capacity=course.GOLDEN_CLOUD_CAPACITY, device="cuda")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fresh.run_windowed(frames[:48], window=course.GOLDEN_WINDOW, raw_capacity=course.GOLDEN_RAW_CAPACITY)
+            fresh.run_windowed(frames[:SLAM_PROFILE_FRAMES], window=course.GOLDEN_WINDOW,
+                               raw_capacity=course.GOLDEN_RAW_CAPACITY)
             torch.cuda.synchronize()
     finally:
         clock.restore()
     busy, wall = device_busy(prof)
-    out["first_48_frames"] = dict(device_busy_s=busy, wall_s=wall, device_idle_share=1.0 - busy / wall,
-                                  top_device=top_device(prof, 10))
+    out["first_frames"] = dict(frames=SLAM_PROFILE_FRAMES, device_busy_s=busy, wall_s=wall,
+                               device_idle_share=1.0 - busy / wall, top_device=top_device(prof, 10))
     for key in ("odometry_window", "optimize_cycle", "graph_solve"):
         b, w = device_busy(prof, {f"slam/{key}"})
-        out["first_48_frames"][key] = dict(device_busy_s=b, wall_s=w, device_idle_share=(1.0 - b / w) if w else None)
+        out["first_frames"][key] = dict(device_busy_s=b, wall_s=w, device_idle_share=(1.0 - b / w) if w else None)
 
     det = slam.loop_detector
     estimates = slam._current_estimates()
@@ -1610,8 +1721,7 @@ def run_golden(cfg, frames, per_frame: bool = False, device_odometry: bool = Fal
 
 
 def slam_phase(knn, golden, phase: str = "slam", cfg=None, per_frame: bool = False,
-               required=("nn1", "knn_select", "nn1_batched", "knn_select_batched", "gicp_associate", "gicp_linearize",
-                         "gicp_cost")) -> dict:
+               required=("nn1", "knn_select", "nn1_batched", "knn_select_batched") + GICP_GATED) -> dict:
     """golden_town through SlamPipeline.run_windowed (or, ``per_frame``,
     run) on the card with ``cfg`` (the base config by default): the gates,
     the stage split and the launches of every kernel in ``required``."""
@@ -2086,12 +2196,19 @@ def gicp_bounds(kernel: str, w: dict, peak_flops: float, found_gate: bool = Fals
     mask (37, or 36), and writes each row's Mw (36) and each count (4). The
     linearization and the cost read each pose, each row's Mw (36: it is the
     gate), each valid row's point and index (16) and each target point a
-    valid row names (12), and write (43 or 1) floats a problem. Operations
-    per row (association) and per valid row (GICP_*_OPS)."""
+    valid row names (12), and write (43 or 1) floats a problem. The fused
+    form moves the association's bytes and the linearization's points and
+    rows, without reading Mw back. Operations per row (association) and per
+    valid row (GICP_*_OPS)."""
+    assoc_bytes = (64 + 4) * w["batch"] + w["rows"] * (36 + 4 + (1 if found_gate else 5) + 36) \
+        + w["named"] * (36 if found_gate else 37)
     if kernel == "gicp_associate":
-        nbytes = (64 + 4) * w["batch"] + w["rows"] * (36 + 4 + (1 if found_gate else 5) + 36) \
-            + w["named"] * (36 if found_gate else 37)
-        ops = w["rows"] * GICP_ASSOC_OPS_PER_ROW
+        nbytes, ops = assoc_bytes, w["rows"] * GICP_ASSOC_OPS_PER_ROW
+    elif kernel == "gicp_associate_linearize":
+        # the association's bytes, then each valid row's point and the target
+        # point it names, and the (B, 43) rows; Mw is written, never read back
+        nbytes = assoc_bytes + 4 * 43 * w["batch"] + 12 * w["valid"] + 12 * w["named_valid"]
+        ops = w["rows"] * GICP_ASSOC_OPS_PER_ROW + w["valid"] * GICP_LIN_OPS_PER_ROW
     else:
         cost_only = kernel == "gicp_cost"
         nbytes = (64 + 4 * (1 if cost_only else 43)) * w["batch"] + 36 * w["rows"] + 16 * w["valid"] \
@@ -2107,40 +2224,67 @@ def rel_to_max(a, b) -> float:
     return d / m if m else d
 
 
+def gicp_trial_poses(T, H, b):
+    """Trial poses of a damped LM step from (H, b) at T (B, 4, 4): d =
+    -(H + lam I)^-1 b with lam 1e-3 of H's largest diagonal entry (enough
+    for a problem of few valid rows on two planes), T_new = exp(d) T."""
+    from hdl_graph_slam_tpu_torch.core import se3
+    from hdl_graph_slam_tpu_torch.ops.small_solve import solve_spd
+
+    A = H.clone()
+    A.diagonal(dim1=-2, dim2=-1).add_(1e-3 * H.diagonal(dim1=-2, dim2=-1).abs().amax(-1, keepdim=True))
+    return se3.compose(se3.se3_exp(-solve_spd(A, b)), T).contiguous()
+
+
 def check_gicp(case: str, T, src, tgt_covs, tgt_xyz, idx, gate) -> dict:
-    """gicp.associate, linearize and cost against their plain twins on the
-    card for B problems at the poses T (B, 4, 4) under one search's idx
-    and gate (a gicp.DistanceGate, or found flags), each (B, n): Mw within
-    GICP_MW_TOL of its largest |entry| and num equal; H, b and cost, and
-    the cost_only call's cost, within GICP_LIN_TOL of their largest
-    |entry| (each side's distance to the plain twin in float64 reported
+    """The GICP kernel's forms on the card for B problems at the poses T
+    (B, 4, 4) under one search's idx and gate (a gicp.DistanceGate, or
+    found flags), each (B, n): Mw within GICP_MW_TOL of the plain twin's
+    largest |entry| and num equal; H, b and cost, and the cost form's cost,
+    within GICP_LIN_TOL of their largest |entry| in the plain twin run in
+    float64 on the same inputs (the plain float32 twin's distance reported
     beside it: near an optimum b is a small sum of large terms, and the
-    float32 rounding of the moved points sets both sides' error); the cost_only cost bit for bit the full call's; every call
-    again bit for bit; and each problem's single call (a (4, 4) pose, its
-    own rows) bit for bit its row of the batch. Returns (the row, the
-    batched correspondences)."""
+    float32 rounding of the moved points sets that twin's error); the fused
+    call (associate_linearize) bit for bit associate then linearize; the
+    prepared call's fused form bit for bit the wrapper's, and its
+    linearization at the trial poses of a damped step (what the gated loop
+    carries to the next step) bit for bit a fresh linearize there, its cost
+    form the same cost; the cost form's cost bit for bit the full call's;
+    every call again bit for bit; and each problem's single call (a (4, 4)
+    pose, its own rows) bit for bit its row of the batch. Returns (the row,
+    the batched correspondences)."""
     import torch
 
     g = _gicp()
     dist = isinstance(gate, g.DistanceGate)
+    flags = gate.d2 if dist else gate
 
     def gate_of(b):
         return g.DistanceGate(gate.d2[b], gate.tgt_mask, gate.max_corr_dist) if dist else gate[b]
 
     def calls(T, src, idx, gate):
-        corr = g.associate(T, src, tgt_covs, idx, gate)
-        return corr, g.linearize(T, corr, src, tgt_xyz)[:3], g.cost(T, corr, src, tgt_xyz)
+        corr, lin = g.associate_linearize(T, src, tgt_covs, tgt_xyz, idx, gate)
+        return corr, lin[:3], g.cost(T, corr, src, tgt_xyz)
 
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
 
     corr, lin, cst = calls(T, src, idx, gate)
+    sep = g.associate(T, src, tgt_covs, idx, gate)
+    sep_lin = g.linearize(T, sep, src, tgt_xyz)[:3]
     corr_p = g.associate_plain(T, src, tgt_covs, idx, gate)
     lin_p = g.linearize_plain(T, corr, src, tgt_xyz)[:3]
-    cst_p = g.cost_plain(T, corr, src, tgt_xyz)
     # the plain twin in float64 on the same inputs: how far each float32 side is from it
     lin_64 = g.linearize_plain(T.double(), g.GicpCorr(corr.idx, corr.Mw.double(), corr.num),
                                g.GicpCloud(src.xyz.double(), src.mask, src.covs.double()), tgt_xyz.double())[:3]
+    # the loop's path: the prepared fused call, a damped step, the trial linearized in full
+    prep = g.Prepared(src, tgt_covs, tgt_xyz, gate.tgt_mask if dist else None, gate.max_corr_dist if dist else 0.0)
+    pc, pl = prep.associate_linearize(T, idx, flags)
+    pc, pl = g.GicpCorr(pc.idx, pc.Mw.clone(), pc.num.clone()), [x.clone() for x in pl[:3]]
+    T_new = gicp_trial_poses(T, pl[0], pl[1])
+    trial = [x.clone() for x in prep.linearize(T_new, pc)[:3]]
+    trial_cost = prep.cost(T_new, pc).clone()
+    fresh = g.linearize(T_new, corr, src, tgt_xyz)[:3]
     again = calls(T, src, idx, gate)
     singles = [calls(T[b], g.GicpCloud(src.xyz[b], src.mask[b], src.covs[b]), idx[b], gate_of(b))
                for b in range(T.shape[0])]
@@ -2148,10 +2292,13 @@ def check_gicp(case: str, T, src, tgt_covs, tgt_xyz, idx, gate) -> dict:
     row = dict(phase="gicp_kernels", case=case, gate="distance" if dist else "found", batch=int(T.shape[0]),
                n=int(idx.shape[1]), valid=corr.num.tolist(), valid_plain=corr_p.num.tolist(),
                Mw_err=rel_to_max(corr.Mw, corr_p.Mw), Mw_identical=bool(torch.equal(corr.Mw, corr_p.Mw)),
-               H_err=rel_to_max(lin[0], lin_p[0]), b_err=rel_to_max(lin[1], lin_p[1]),
-               cost_err=rel_to_max(lin[2], lin_p[2]), cost_only_err=rel_to_max(cst, cst_p),
-               f64_err=dict(kernel=[rel_to_max(a, r) for a, r in zip(lin, lin_64)],
-                            plain=[rel_to_max(a, r) for a, r in zip(lin_p, lin_64)]),
+               H_err=rel_to_max(lin[0], lin_64[0]), b_err=rel_to_max(lin[1], lin_64[1]),
+               cost_err=rel_to_max(lin[2], lin_64[2]), cost_only_err=rel_to_max(cst, lin_64[2]),
+               plain_f64_err=[rel_to_max(a, r) for a, r in zip(lin_p, lin_64)],
+               kernel_vs_plain_err=[rel_to_max(a, r) for a, r in zip(lin, lin_p)],
+               fused_identical=same(corr, sep) and same(lin, sep_lin),
+               prepared_identical=same(pc, corr) and same(pl, lin),
+               trial_identical=same(trial, fresh) and bool(torch.equal(trial_cost, trial[2])),
                cost_only_identical=bool(torch.equal(cst, lin[2])),
                repeat_identical=same(again[0], corr) and same(again[1], lin) and torch.equal(again[2], cst),
                single_identical=all(same(c, [x[b] for x in corr]) and same(li, [x[b] for x in lin])
@@ -2162,21 +2309,46 @@ def check_gicp(case: str, T, src, tgt_covs, tgt_xyz, idx, gate) -> dict:
     require(row["valid"] == row["valid_plain"] and row["Mw_err"] <= GICP_MW_TOL, f"{what} association: {row}")
     require(max(row["H_err"], row["b_err"], row["cost_err"], row["cost_only_err"]) <= GICP_LIN_TOL,
             f"{what} linearization: {row}")
-    require(row["cost_only_identical"], f"{what}: the cost_only cost differs from the full call's: {row}")
+    require(row["fused_identical"], f"{what}: the fused call differs from associate then linearize: {row}")
+    require(row["prepared_identical"], f"{what}: the prepared fused call differs from the wrapper's: {row}")
+    require(row["trial_identical"], f"{what}: the trial's linearization differs from a fresh one: {row}")
+    require(row["cost_only_identical"], f"{what}: the cost form's cost differs from the full call's: {row}")
     require(row["repeat_identical"], f"{what}: a repeated call differs: {row}")
     require(row["single_identical"], f"{what}: a problem's single call differs from its row of the batch: {row}")
     return row, corr
 
 
+def gicp_timed(name: str, case: str, fn, plain, wrapper, w: dict, peak_flops: float, found_gate: bool = False) -> dict:
+    """A timed row of one GICP form: the prepared call ``fn`` (the LM
+    loop's launch) against its plain twin, the public ``wrapper``'s host
+    time beside it, the bound from the run's rows (gicp_bounds)."""
+    import torch
+
+    def tensors(x):
+        return [t for o in (x if isinstance(x, tuple) else (x,)) for t in (o if isinstance(o, tuple) else (o,))
+                if t.is_floating_point()]
+
+    bound, by = gicp_bounds(name, w, peak_flops, found_gate=found_gate)
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(tensors(fn()), tensors(plain())))
+    torch.cuda.synchronize()
+    row = dict(phase="gicp_kernels", kernel=name, case=case, gate="found" if found_gate else "distance",
+               max_abs_err=err, bound_ms=bound, bound_by=by, **w, **time_rows(fn, plain),
+               wrapper_host_ms=host_ms(wrapper))
+    emit(row)
+    return row
+
+
 def gicp_kernels_phase(clouds, vtgt, peak_flops: float) -> dict:
-    """Both GICP kernels against their plain twins (check_gicp) on bench
-    frames 0 (target, gicp.preprocess) and 1 (the source) at the three
-    NDT_TWISTS poses, through GICP's nn1 search and distance gate
-    (GICP_MAX_CORR_M) and through VGICP's voxel lookup over ``vtgt``
-    (vgicp_kernels' target) and its found flags. At the first pose, each
-    wrapper call (both gates, linearize, cost) must be one device operation
-    of its kernel (device_ops_per_call), and each is timed beside its bound
-    (gicp_work, gicp_bounds). Returns the timed rows by kernel."""
+    """The GICP kernel's forms against their plain twins and each other
+    (check_gicp) on bench frames 0 (target, gicp.preprocess) and 1 (the
+    source) at the three NDT_TWISTS poses, through GICP's nn1 search and
+    distance gate (GICP_MAX_CORR_M) and through VGICP's voxel lookup over
+    ``vtgt`` (vgicp_kernels' target) and its found flags. At the first
+    pose, each wrapper call (both gates, the fused form, linearize, cost)
+    must be one device operation of gicp_step_kernel (device_ops_per_call),
+    and each form's prepared call (the LM loop's launch) is timed beside
+    its bound (gicp_work, gicp_bounds) and its wrapper's host time. Returns
+    the timed rows by name."""
     import torch
     from hdl_graph_slam_tpu_torch.core import se3
     from hdl_graph_slam_tpu_torch.registration import ndt
@@ -2196,41 +2368,53 @@ def gicp_kernels_phase(clouds, vtgt, peak_flops: float) -> dict:
     T0, i0, d0, f0, vi0 = T[0], idx[0], d2[0], found[0, :, 0].contiguous(), vidx[0, :, 0].contiguous()
     c0 = g.GicpCorr(corr.idx[0], corr.Mw[0], corr.num[0])
     gate0 = g.DistanceGate(d0, tgt.mask, GICP_MAX_CORR_M)
-    fns = dict(
-        gicp_associate=(lambda: g.associate(T0, one, tgt.covs, i0, gate0),
-                        lambda: g.associate_plain(T0, one, tgt.covs, i0, gate0)),
-        gicp_associate_vgicp=(lambda: g.associate(T0, one, vtgt.covs, vi0, f0),
-                              lambda: g.associate_plain(T0, one, vtgt.covs, vi0, f0)),
-        gicp_linearize=(lambda: g.linearize(T0, c0, one, tgt.xyz), lambda: g.linearize_plain(T0, c0, one, tgt.xyz)),
-        gicp_cost=(lambda: g.cost(T0, c0, one, tgt.xyz), lambda: g.cost_plain(T0, c0, one, tgt.xyz)))
-    ops = {name: device_ops_per_call(fn) for name, (fn, _) in fns.items()}
+    wrappers = dict(
+        gicp_associate_linearize=lambda: g.associate_linearize(T0, one, tgt.covs, tgt.xyz, i0, gate0),
+        gicp_associate_linearize_vgicp=lambda: g.associate_linearize(T0, one, vtgt.covs, vtgt.means, vi0, f0),
+        gicp_associate=lambda: g.associate(T0, one, tgt.covs, i0, gate0),
+        gicp_associate_vgicp=lambda: g.associate(T0, one, vtgt.covs, vi0, f0),
+        gicp_linearize=lambda: g.linearize(T0, c0, one, tgt.xyz),
+        gicp_cost=lambda: g.cost(T0, c0, one, tgt.xyz))
+    ops = {name: device_ops_per_call(fn) for name, fn in wrappers.items()}
     emit(dict(phase="gicp_kernels", case="device_ops_per_call", device_ops_per_call=ops))
-    kernel_of = dict(gicp_associate="gicp_associate_kernel", gicp_associate_vgicp="gicp_associate_kernel",
-                     gicp_linearize="gicp_linearize_kernel", gicp_cost="gicp_linearize_kernel")
-    require(all(n == 1.0 and len(names) == 1 and kernel_of[name] in names[0] for name, (n, names) in ops.items()),
-            f"gicp: a wrapper call is not one launch of its kernel: {ops}")
-    w = gicp_work(c0, 1)
-    wv = gicp_work(g.GicpCorr(vi0, vcorr.Mw[0], vcorr.num[0]), 1)
-    def tensors(x):
-        return x if isinstance(x, tuple) else (x,)
-
-    out = {}
-    for name, (fn, plain) in fns.items():
-        vg = name.endswith("vgicp")
-        bound, by = gicp_bounds(name.replace("_vgicp", ""), wv if vg else w, peak_flops, found_gate=vg)
-        err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(tensors(fn()), tensors(plain())))
-        out[name] = dict(phase="gicp_kernels", kernel=name, case="bench", max_abs_err=err, bound_ms=bound,
-                         bound_by=by, **(wv if vg else w), **time_rows(fn, plain))
-        emit(out[name])
+    require(all(n == 1.0 and len(names) == 1 and "gicp_step_kernel" in names[0] for n, names in ops.values()),
+            f"gicp: a wrapper call is not one launch of gicp_step_kernel: {ops}")
+    p = g.Prepared(one, tgt.covs, tgt.xyz, tgt.mask, GICP_MAX_CORR_M)
+    pv = g.Prepared(one, vtgt.covs, vtgt.means)
+    vc0 = g.GicpCorr(vi0, vcorr.Mw[0], vcorr.num[0])
+    w, wv = gicp_work(c0, 1), gicp_work(vc0, 1)
+    out = dict(
+        gicp_associate_linearize=gicp_timed(
+            "gicp_associate_linearize", "bench", lambda: p.associate_linearize(T0, i0, d0),
+            lambda: g.associate_linearize_plain(T0, one, tgt.covs, tgt.xyz, i0, gate0),
+            wrappers["gicp_associate_linearize"], w, peak_flops),
+        gicp_associate_linearize_vgicp=gicp_timed(
+            "gicp_associate_linearize", "bench_vgicp", lambda: pv.associate_linearize(T0, vi0, f0),
+            lambda: g.associate_linearize_plain(T0, one, vtgt.covs, vtgt.means, vi0, f0),
+            wrappers["gicp_associate_linearize_vgicp"], wv, peak_flops, found_gate=True),
+        gicp_associate=gicp_timed(
+            "gicp_associate", "bench", lambda: p.associate(T0, i0, d0),
+            lambda: g.associate_plain(T0, one, tgt.covs, i0, gate0), wrappers["gicp_associate"], w, peak_flops),
+        gicp_associate_vgicp=gicp_timed(
+            "gicp_associate", "bench_vgicp", lambda: pv.associate(T0, vi0, f0),
+            lambda: g.associate_plain(T0, one, vtgt.covs, vi0, f0), wrappers["gicp_associate_vgicp"], wv, peak_flops,
+            found_gate=True),
+        gicp_linearize=gicp_timed(
+            "gicp_linearize", "bench", lambda: p.linearize(T0, c0), lambda: g.linearize_plain(T0, c0, one, tgt.xyz),
+            wrappers["gicp_linearize"], w, peak_flops),
+        gicp_cost=gicp_timed(
+            "gicp_cost", "bench", lambda: p.cost(T0, c0), lambda: g.cost_plain(T0, c0, one, tgt.xyz),
+            wrappers["gicp_cost"], w, peak_flops))
     return out
 
 
-def gicp_batched_phase(golden) -> dict:
+def gicp_batched_phase(golden, peak_flops: float) -> dict:
     """check_gicp at the loop detector's shape: golden_town frame
     LOOP_TARGET_FRAME as the target and its LOOP_CANDIDATE_OFFSETS frames
     as B = GOLDEN_B sources (the golden prefilter's 4096 rows,
     gicp.preprocess with a leading batch), at loop_methods' truth guesses;
-    the linearization timed at that shape. Returns the timed row."""
+    the fused and linearize forms' prepared calls timed at that shape.
+    Returns the timed rows by name."""
     import torch
 
     g = _gicp()
@@ -2248,13 +2432,18 @@ def gicp_batched_phase(golden) -> dict:
         guesses.append(m)
     T = torch.from_numpy(np.stack(guesses)).float().to(src.xyz.device)
     idx, d2 = g._correspond(T, src, tgt)
-    row, corr = check_gicp("loop_batch", T, src, tgt.covs, tgt.xyz, idx,
-                           g.DistanceGate(d2, tgt.mask, GICP_MAX_CORR_M))
-    timed = dict(phase="gicp_kernels", kernel="gicp_linearize", case="loop_batch", max_abs_err=row["max_abs_err"],
-                 **gicp_work(corr, T.shape[0]),
-                 **time_rows(lambda: g.linearize(T, corr, src, tgt.xyz), lambda: g.linearize_plain(T, corr, src, tgt.xyz)))
-    emit(timed)
-    return timed
+    gate = g.DistanceGate(d2, tgt.mask, GICP_MAX_CORR_M)
+    row, corr = check_gicp("loop_batch", T, src, tgt.covs, tgt.xyz, idx, gate)
+    p = g.Prepared(src, tgt.covs, tgt.xyz, tgt.mask, GICP_MAX_CORR_M)
+    w = gicp_work(corr, T.shape[0])
+    return dict(
+        gicp_associate_linearize=gicp_timed(
+            "gicp_associate_linearize", "loop_batch", lambda: p.associate_linearize(T, idx, d2),
+            lambda: g.associate_linearize_plain(T, src, tgt.covs, tgt.xyz, idx, gate),
+            lambda: g.associate_linearize(T, src, tgt.covs, tgt.xyz, idx, gate), w, peak_flops),
+        gicp_linearize=gicp_timed(
+            "gicp_linearize", "loop_batch", lambda: p.linearize(T, corr), lambda: g.linearize_plain(T, corr, src, tgt.xyz),
+            lambda: g.linearize(T, corr, src, tgt.xyz), w, peak_flops))
 
 
 def loop_methods_phase(golden) -> dict:
@@ -2436,7 +2625,21 @@ def window_phase(knn, scans, phase: str, reg: dict, frames: int, required: tuple
     require(all(launches[k] >= 1 for k in required), f"{phase} path did not go through every kernel: {launches}")
     require(all(launches[k] >= frames for k in per_frame), f"{phase}: a kernel of {per_frame} launched less than "
                                                             f"once a frame: {launches}")
+    if any(launches[k] for k in GICP_COUNTERS):
+        require_gicp_launches(phase, launches, frames, row["iterations_per_frame"])
     return launches, odoms
+
+
+def require_gicp_launches(phase: str, launches: dict, frames: int, iterations_per_frame: float) -> None:
+    """The LM loop launches each GICP form once per pose and correspondence
+    set: gated, 1 + refreshes fused calls and a linearization a step;
+    ungated, a fused call and a cost trial a step (the first fused call
+    _lm_init's). Either is at most 1 + 2 x iterations a frame (the loop
+    that repeated _lm_init's calls and associated apart from linearizing
+    ran 7.1 at 2.05 iterations)."""
+    per_frame = sum(launches[k] for k in GICP_COUNTERS) / frames
+    require(per_frame <= 1.0 + 2.0 * iterations_per_frame,
+            f"{phase}: {per_frame} GICP launches a frame at {iterations_per_frame} LM iterations")
 
 
 def imu_phase(knn, golden) -> dict:
@@ -2507,8 +2710,8 @@ CLI_CLOUD_CAPACITY = 16384
 MAP_MAX_POINTS = 1 << 21  # MapCloudGenerator.generate's default voxel cap
 CLI_TIMEOUT_S = 600
 MAP_RESOLUTION = 0.05  # the CLI's --map-resolution default
-CLI_REQUIRED = ("nn1", "knn_select", "nn1_batched", "knn_select_batched", "radius_count", "knn_select_k10",
-                "gicp_associate", "gicp_linearize", "gicp_cost")
+CLI_REQUIRED = ("nn1", "knn_select", "nn1_batched", "knn_select_batched", "radius_count",
+                "knn_select_k10") + GICP_UNGATED
 # The child process runs the CLI module as ``python -m`` does (runpy,
 # run_name __main__, sys.argv set) and then writes its kernel launch counts
 # to the file named by its first argument, which it removes from sys.argv.
@@ -2855,7 +3058,7 @@ MESH_ATOL_M, MESH_CHI2_RTOL = 1e-6, 1e-9  # a 4-entry mesh of cuda:0: the shards
 RANKS_ATOL_M, RANKS_CHI2_RTOL = 1e-5, 1e-6
 NCCL_ATOL_M = 1e-9  # one NCCL rank: its all-reduce of one rank is a copy
 RANKS_TIMEOUT_S = 180
-PARALLEL_FRAMES = 120  # the backend route: golden_town's first frames, floor config
+PARALLEL_FRAMES = 64  # the backend route: golden_town's first frames, floor config
 PARALLEL_SUBMAP_BLOCK = 8
 PARALLEL_SHARDS = 4  # mesh entries of cuda:0 for the sharded LM and the sharded align
 # The child process of a rank: chip_smoke.multihost_rank(workdir, world, rank, device, backend, iterations)
@@ -3338,32 +3541,37 @@ def kernels_line(kres, bres, fres, nres, nimu, gres, launches, peak_flops) -> li
                            device_ms=q["device_ms"], host_ms=q["host_ms"], plain_ms=q["plain_ms"],
                            bound_ms=q["bound_ms"], bound_by=q["bound_by"], library_ms=None),
         ))
-    # the GICP kernels (csrc/gicp.cu) at the main path's shape (bench frames, one problem), the
-    # association's VGICP gate and the cost_only call beside them, the loop's B = 8 under batch_shape
+    # the GICP kernel (csrc/gicp.cu gicp_step_kernel) at the main path's shape (bench frames, one
+    # problem), as the LM loop launches it: the fused form with the associate-only form and the VGICP
+    # gate beside it, the linearize form with the cost form; the loop's B = 8 under batch_shape
     def times(r):
         return dict(max_abs_err=r["max_abs_err"], ms=r["kernel_ms"], kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
-                    host_ms=r["host_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=None)
+                    host_ms=r["host_ms"], wrapper_host_ms=r["wrapper_host_ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
 
     def shape(r):
         return f"B={r['batch']} x n={r['rows'] // r['batch']} ({r['valid']} valid rows)"
 
+    def beside(r):
+        return dict(shape=shape(r), **times(r))
+
     lb = gres["loop_batch"]
-    lb_bound = gicp_bounds("gicp_linearize", lb, peak_flops)  # the batch's bound, from its own rows
     for name, parts, replaces, extra in (
-            ("gicp_associate", ("gicp_associate",),
-             "hdl_graph_slam_tpu/registration/gicp.py:116 (_associate after its 1-NN search, XLA) and "
-             "registration/vgicp.py:112 (_associate after its voxel lookup)",
-             dict(vgicp_gate=dict(shape=shape(gres["gicp_associate_vgicp"]), **times(gres["gicp_associate_vgicp"])))),
+            ("gicp_associate_linearize", ("gicp_associate_linearize", "gicp_associate"),
+             "hdl_graph_slam_tpu/registration/gicp.py:116 (_associate after its 1-NN search) then :131 "
+             "(_linearize_at), registration/vgicp.py:112 then :124 (XLA)",
+             dict(vgicp_gate=beside(gres["gicp_associate_linearize_vgicp"]),
+                  associate_only=beside(gres["gicp_associate"]),
+                  associate_only_vgicp_gate=beside(gres["gicp_associate_vgicp"]),
+                  batch_shape=beside(lb["gicp_associate_linearize"]))),
             ("gicp_linearize", ("gicp_linearize", "gicp_cost"),
              "hdl_graph_slam_tpu/registration/gicp.py:131 (_linearize_at) and :147 (_cost_at), "
              "registration/vgicp.py:124 and :138 (XLA)",
-             dict(cost_only=dict(shape=shape(gres["gicp_cost"]), **times(gres["gicp_cost"])),
-                  batch_shape=dict(shape=shape(lb), **times(dict(lb, bound_ms=lb_bound[0], bound_by=lb_bound[1])))))):
+             dict(cost_only=beside(gres["gicp_cost"]), batch_shape=beside(lb["gicp_linearize"])))):
         r = gres[name]
         line.append(dict(
-            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/gicp.cu", replaces=replaces,
-            launches=sum(launches["main"][p] for p in parts),
+            name=name, route="cuda", source="hdl_graph_slam_tpu_torch/csrc/gicp.cu", kernel="gicp_step_kernel",
+            replaces=replaces, launches=sum(launches["main"][p] for p in parts),
             launches_per_frame=sum(launches["main"][p] for p in parts) / BENCH_FRAMES,
             launches_by_path={path: {p: v[p] for p in parts} for path, v in launches.items()},
             shape=shape(r), valid_rows=r["valid"], named_rows=r["named"], **times(r), **extra))
@@ -3402,7 +3610,7 @@ def main(argv=None) -> int:
     from hdl_graph_slam_tpu_torch.frontend import Prefilter
     from hdl_graph_slam_tpu_torch.ops import knn
     from hdl_graph_slam_tpu_torch.utils import course
-    from hdl_graph_slam_tpu_torch.utils.course import BENCH_FRAMES, BENCH_RAW_CAPACITY, BENCH_STEP, make_course
+    from hdl_graph_slam_tpu_torch.utils.course import BENCH_FRAMES, BENCH_RAW_CAPACITY, BENCH_STEP
 
     dev = torch.device("cuda")
 
@@ -3434,8 +3642,9 @@ def main(argv=None) -> int:
     kres, launches = {}, {}
     # -- course (host ray casting) ----------------------------------------
     t0 = time.perf_counter()
-    scans = make_course(BENCH_FRAMES, BENCH_STEP, seed=SEED)
-    emit(dict(phase="course", frames=BENCH_FRAMES, seed=SEED, seconds=time.perf_counter() - t0,
+    workers = max(1, min(8, os.cpu_count() or 1))
+    scans = bench_scans(BENCH_FRAMES, workers)
+    emit(dict(phase="course", frames=BENCH_FRAMES, seed=SEED, workers=workers, seconds=time.perf_counter() - t0,
               raw_points_mean=float(np.mean([s.shape[0] for s in scans]))))
 
     pf_cfg, _ = bench_configs()
@@ -3562,9 +3771,9 @@ def main(argv=None) -> int:
     require(main_row["converged_fraction"] > 0.9, f"only {main_row['converged_fraction']:.0%} of frames converged")
     require(main_row["det_err"] < 1e-4, f"det(R) drift {main_row['det_err']:.2e}")
     require(main_row["orth_err"] < 1e-4, f"orthogonality error {main_row['orth_err']:.2e}")
-    require(all(launches["main"][k] >= BENCH_FRAMES for k in ("knn_select", "nn1", "gicp_associate",
-                                                                 "gicp_linearize", "gicp_cost")),
+    require(all(launches["main"][k] >= BENCH_FRAMES for k in ("knn_select", "nn1") + GICP_GATED),
             f"main path did not go through the kernels: {launches['main']}")
+    require_gicp_launches("main", launches["main"], BENCH_FRAMES, main_row["lm_iterations_per_frame"])
 
     if args.profile:
         emit(profile_frames(win, state0, xyz, mask, stamps, 16, dt / BENCH_FRAMES))
@@ -3578,11 +3787,10 @@ def main(argv=None) -> int:
 
     # -- 4c. the same course with FAST_VGICP and with ICP, held to the JAX package's run
     launches["vgicp_main"], _ = window_phase(
-        knn, scans, "vgicp_main", VGICP_MAIN_REG, BENCH_FRAMES, ("ndt_associate", "knn_select", "gicp_associate",
-                                                                 "gicp_linearize", "gicp_cost"),
-        per_frame=("ndt_associate", "knn_select", "gicp_associate", "gicp_linearize", "gicp_cost"),
+        knn, scans, "vgicp_main", VGICP_MAIN_REG, BENCH_FRAMES, ("ndt_associate", "knn_select") + GICP_UNGATED,
+        per_frame=("ndt_associate", "knn_select") + GICP_UNGATED,
         witness=VGICP_WITNESS)
-    launches["icp_main"], _ = window_phase(knn, scans, "icp_main", ICP_MAIN_REG, BENCH_FRAMES, ("nn1",),
+    launches["icp_main"], _ = window_phase(knn, scans, "icp_main", ICP_MAIN_REG, ICP_MAIN_FRAMES, ("nn1",),
                                            per_frame=("nn1",), witness=ICP_WITNESS, drift_gate=False,
                                            traced=ICP_TRACED_FRAMES)
     launches["icp_reciprocal"], _ = window_phase(
@@ -3596,7 +3804,7 @@ def main(argv=None) -> int:
     # -- 6. batched kernels at the loop shapes; floor ----------
     keyframes = golden_keyframes(golden)
     bres = kernel_batched_phase(knn, golden, keyframes)
-    gres["loop_batch"] = gicp_batched_phase(golden)
+    gres["loop_batch"] = gicp_batched_phase(golden, peak_flops)
     floor_phase(keyframes, peak_flops)
     launches.update({f"loop_{m}": v for m, v in loop_methods_phase(golden).items()})
 

@@ -109,11 +109,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.hgs_ndt_score.argtypes = [p, p, p, i, i, i, i, p, p, p, f, f, i, p, p, p, p]
         lib.hgs_ndt_score.restype = i
     elif name == "gicp":
-        f = ctypes.c_float
-        lib.hgs_gicp_associate.argtypes = [p, i, i, p, p, p, p, p, p, f, p, p, p, p, p]
-        lib.hgs_gicp_associate.restype = i
-        lib.hgs_gicp_linearize.argtypes = [p, i, i, p, p, p, p, i, i, p, p, p, p]
-        lib.hgs_gicp_linearize.restype = i
+        lib.hgs_gicp_step.argtypes = [p, p]  # a GicpArgs (registration/gicp.py), the stream
+        lib.hgs_gicp_step.restype = i
 
 
 def stream(x) -> int:

@@ -11,18 +11,24 @@ the launch default).
   Mahalanobis weight M_i = (C_b + R C_a R^T)^-1; residual e_i = b - T a;
 - Levenberg-Marquardt on SE(3) with Nielsen damping (base.lm_loop).
 
-The association's Mahalanobis and the linearization have hand-written
-Hopper kernels (csrc/gicp.cu), each with its plain PyTorch twin here:
+The association's Mahalanobis and the linearization are one hand-written
+Hopper kernel in four forms (csrc/gicp.cu ``gicp_step_kernel``), each with
+its plain PyTorch twin here:
 
 - ``associate``: after the correspondence search, the gate and
   M = inv3x3(C_tgt[idx] + R C_src R^T) per source row, and the valid count
-  (``gicp_associate_kernel``; VGICP's voxel association ends here too);
+  (VGICP's voxel association ends here too);
 - ``linearize``: H = sum J^T M J, b = sum J^T M e and the cost at a pose
-  under carried correspondences, J never formed (``gicp_linearize_kernel``);
-- ``cost``: the cost alone (its ``cost_only`` instantiation), the LM trial.
+  under carried correspondences, J never formed;
+- ``associate_linearize``: both at one pose in one launch, the two calls'
+  bits (Mw written once, never read back): every association of the LM
+  loop;
+- ``cost``: the cost alone, the full call's bits: the LM trial without
+  carried correspondences.
 
 A wrapper runs its plain twin only for CPU tensors; on CUDA tensors it
-launches its kernel or raises. Each counts its launches in
+checks its inputs and launches its kernel or raises. ``align`` checks once
+and launches through a ``Prepared`` call. Each form counts its launches in
 ``<wrapper>.launches``.
 
 Every function takes a leading batch on the source as well: that is the loop
@@ -36,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -45,7 +51,7 @@ from ..core import se3
 from ..core.cloud import PointCloud
 from ..ops import knn
 from ..ops.eig3 import plane_regularize
-from .base import AlignResult, lm_loop, lm_loop_batched
+from .base import AlignResult, _select_rows, lm_loop, lm_loop_batched
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,73 +159,8 @@ def associate_plain(T: torch.Tensor, src: GicpCloud, tgt_covs: torch.Tensor, idx
     return GicpCorr(idx=idx, Mw=Mw, num=valid.sum(-1, dtype=torch.int32))
 
 
-def _batched(T: torch.Tensor, *xs: torch.Tensor) -> tuple:
-    """T (4, 4) or (B, 4, 4) and per-row tensors (N, ...) or (B, N, ...) as
-    contiguous batched tensors."""
-    one = T.ndim == 2
-    return tuple((x[None] if one else x).contiguous() for x in (T, *xs))
-
-
-def _check(name: str, T: torch.Tensor, *tensors: torch.Tensor) -> None:
-    """What the kernels take: float32 poses (4, 4) or (B <= 65535, 4, 4) and
-    every tensor on their device."""
-    if T.dtype != torch.float32 or T.shape[-2:] != (4, 4) or T.ndim not in (2, 3):
-        raise ValueError(f"{name}: poses must be (4, 4) or (B, 4, 4) float32, got {tuple(T.shape)} {T.dtype}")
-    if T.ndim == 3 and not 0 < T.shape[0] <= 65535:
-        raise ValueError(f"{name}: batch {T.shape[0]} outside 1..65535")
-    devices = {x.device for x in tensors}
-    if devices != {T.device}:
-        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}, poses on {T.device}")
-
-
-def associate(T: torch.Tensor, src: GicpCloud, tgt_covs: torch.Tensor, idx: torch.Tensor,
-              gate: Union[DistanceGate, torch.Tensor]) -> GicpCorr:
-    """The correspondence state at the poses T (4, 4) or (B, 4, 4) of the
-    sources (N, ...) or (B, N, ...), after the search named idx (int32) in
-    the target: the gate (a DistanceGate for GICP, the voxel lookup's
-    ``found`` flags for VGICP), M = inv3x3(tgt_covs[idx] + R C_src R^T)
-    zeroed where the gate fails, and the valid count
-    (``gicp_associate_kernel`` on the card: one launch, the plain twin's
-    bits)."""
-    dist = isinstance(gate, DistanceGate)
-    flags = gate.d2 if dist else gate
-    _check("gicp associate", T, src.covs, src.mask, tgt_covs, idx, flags, *([gate.tgt_mask] if dist else []))
-    if T.device.type == "cpu":
-        return associate_plain(T, src, tgt_covs, idx, gate)
-    Tb, covs, ib, flags, smask = _batched(T, src.covs, idx, flags, src.mask)
-    b, n = ib.shape
-    if (ib.dtype != torch.int32 or covs.shape != (b, n, 3, 3) or covs.dtype != torch.float32
-            or tgt_covs.dtype != torch.float32 or flags.shape != (b, n) or smask.shape != (b, n)
-            or flags.dtype != (torch.float32 if dist else torch.bool) or smask.dtype != torch.bool
-            or (dist and gate.tgt_mask.dtype != torch.bool)):
-        raise ValueError(f"gicp associate: idx {tuple(ib.shape)} {ib.dtype}, covariances {tuple(covs.shape)} "
-                         f"{covs.dtype} / {tgt_covs.dtype}, gate {tuple(flags.shape)} {flags.dtype}, "
-                         f"mask {tuple(smask.shape)} {smask.dtype}")
-    tgt_covs = tgt_covs.contiguous()
-    tmask = gate.tgt_mask.contiguous() if dist else None
-    Mw = torch.empty((b, n, 3, 3), dtype=torch.float32, device=T.device)
-    num = torch.empty((b,), dtype=torch.int32, device=T.device)
-    st = kernels.stream(Tb)
-    counters, _ = kernels.workspace(Tb, st, "gicp", 2 * b, 0)
-    if dist:  # d2, smask, tmask, max_corr_dist^2, no found flags
-        gate_args = (flags.data_ptr(), smask.data_ptr(), tmask.data_ptr(),
-                     ctypes.c_float(gate.max_corr_dist * gate.max_corr_dist), None)
-    else:
-        gate_args = (None, None, None, ctypes.c_float(0.0), flags.data_ptr())
-    kernels.check(kernels.load("gicp").hgs_gicp_associate(
-        Tb.data_ptr(), b, n, covs.data_ptr(), tgt_covs.data_ptr(), ib.data_ptr(), *gate_args, counters.data_ptr(),
-        Mw.data_ptr(), num.data_ptr(), st), "gicp associate")
-    associate.launches += 1
-    if T.ndim == 2:
-        return GicpCorr(idx=idx, Mw=Mw[0], num=num[0])
-    return GicpCorr(idx=idx, Mw=Mw, num=num)
-
-
-associate.launches = 0
-
-
 def linearize_plain(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt_xyz: torch.Tensor):
-    """Plain twin of ``linearize``."""
+    """Plain twin of ``linearize``; its cost is ``cost_plain``'s arithmetic."""
     moved = _moved(T, src.xyz)
     e = tgt_xyz[corr.idx] - moved  # (..., N, 3)
     # J_i = d e / d [v, w] for the left-multiplied increment exp([v,w]) T:
@@ -240,64 +181,301 @@ def cost_plain(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt_xyz: torch.T
     return (e * (corr.Mw @ e[..., None])[..., 0]).sum((-1, -2))
 
 
-# csrc/gicp.cu's launch constants: threads a block, linearization blocks a
-# problem at most, floats a partial row
-_THREADS, _MAX_BLOCKS, _ROW = 256, 1024, 32
+def associate_linearize_plain(T: torch.Tensor, src: GicpCloud, tgt_covs: torch.Tensor, tgt_xyz: torch.Tensor,
+                              idx: torch.Tensor, gate: Union[DistanceGate, torch.Tensor]):
+    """Plain twin of ``associate_linearize``: associate_plain, then
+    linearize_plain at the same poses."""
+    corr = associate_plain(T, src, tgt_covs, idx, gate)
+    return corr, linearize_plain(T, corr, src, tgt_xyz)
 
 
-def _blocks(n: int) -> int:
-    """The linearization's blocks per problem over n points (gicp.cu
-    blocks_for): one point a thread up to _MAX_BLOCKS blocks."""
-    return min(max(-(-n // _THREADS), 1), _MAX_BLOCKS)
+# -- the launches (csrc/gicp.cu) ---------------------------------------------------------
+
+# gicp.cu's forms (enum Form), its threads a block (a row each) and the
+# doubles of a block's row in the scratch
+ASSOCIATE, FUSED, LINEARIZE, COST = range(4)
+_THREADS = 128
+_ROW = 32
 
 
-def _reduce(name: str, T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt_xyz: torch.Tensor, cost_only: bool):
-    """One launch of gicp_linearize_kernel: out (B, 43), or (B,) cost_only."""
+def _layout(n: int) -> tuple:
+    """gicp.cu layout_for: (blocks a problem, rows a block) over n rows."""
+    blocks = max(-(-n // _THREADS), 1)
+    return blocks, max((-(-n // blocks) + 3) // 4 * 4, 4)
+
+
+class GicpArgs(ctypes.Structure):
+    """gicp.cu's struct GicpArgs, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("T", "xyz", "covs", "idx", "d2", "smask", "tmask", "found",
+                                                 "tgt_covs", "tgt_xyz", "Mw", "num", "out", "tickets", "partial")]
+                + [("max_d2", ctypes.c_float)]
+                + [(f, ctypes.c_int) for f in ("batch", "n", "form", "blocks", "span")])
+
+
+def _check(name: str, T: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """What the kernels take: float32 poses (4, 4) or (B <= 65535, 4, 4) and
+    every tensor on their device."""
+    if T.dtype != torch.float32 or T.shape[-2:] != (4, 4) or T.ndim not in (2, 3):
+        raise ValueError(f"{name}: poses must be (4, 4) or (B, 4, 4) float32, got {tuple(T.shape)} {T.dtype}")
+    if T.ndim == 3 and not 0 < T.shape[0] <= 65535:
+        raise ValueError(f"{name}: batch {T.shape[0]} outside 1..65535")
+    devices = {x.device for x in tensors}
+    if devices != {T.device}:
+        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}, poses on {T.device}")
+
+
+class Prepared:
+    """The GICP launches of one align: B problems of n source rows ``src``
+    ((N, ...) for one problem, (B, N, ...) for a batch) against one target:
+    its covariances ``tgt_covs`` (M, 3, 3) for the associating forms, its
+    points ``tgt_xyz`` (M, 3) for the linearizing ones, GICP's
+    ``tgt_mask`` (M,) and ``max_corr_dist``, or VGICP's found flags when
+    ``tgt_mask`` is None. Shapes, dtypes and devices are checked here, once.
+    The calls take poses T shaped as the sources' batch (contiguous float32)
+    and the search's idx (int32) and gate flags (GICP's d2, VGICP's found)
+    shaped as src.mask, contiguous, and launch with no check: one ctypes
+    call of ``hgs_gicp_step`` on arguments set up here, on the stream and
+    scratch of the construction, into outputs in rings of two slots made at
+    first use.
+
+    A linearization on the card is (H, b, cost, num_inliers, rows): H, b and
+    cost are views of the (B, 43) ``rows`` the kernel writes, which only
+    ``select`` reads. A result stays valid until the second later call of
+    its kind: H / b / cost of ``associate_linearize`` and ``linearize``;
+    the cost alone; Mw / num of ``associate_linearize``; Mw / num of
+    ``associate``, whose ring is its own so that the honest error of a
+    max-iterations exit leaves the last step's count in place. That is all
+    the LM loop holds. On the CPU every call is its plain twin. Each launch
+    counts on its public wrapper (``associate_linearize``, ``associate``,
+    ``linearize``, ``cost``)."""
+
+    def __init__(self, src: GicpCloud, tgt_covs: Optional[torch.Tensor], tgt_xyz: Optional[torch.Tensor],
+                 tgt_mask: Optional[torch.Tensor] = None, max_corr_dist: float = 0.0):
+        self.src, self.tgt_covs, self.tgt_xyz = src, tgt_covs, tgt_xyz
+        self.tgt_mask, self.max_corr_dist = tgt_mask, max_corr_dist
+        self.one = src.xyz.ndim == 2
+        self.cpu = src.xyz.device.type == "cpu"
+        self.b, self.n = (1,) * self.one + tuple(src.mask.shape)
+        self.device = src.xyz.device
+        self._rings: dict = {}
+        if self.cpu:
+            return
+        xyz, mask, covs = ((x[None] if self.one else x).contiguous() for x in (src.xyz, src.mask, src.covs))
+        tgt = [x.contiguous() if x is not None else None for x in (tgt_covs, tgt_xyz, tgt_mask)]
+        b, n = mask.shape
+        m = tgt_covs.shape[0] if tgt_covs is not None else tgt_xyz.shape[0]
+        given = [x for x in [xyz, mask, covs] + tgt if x is not None]
+        devices = {x.device for x in given}
+        if (len(devices) != 1 or xyz.shape != (b, n, 3) or covs.shape != (b, n, 3, 3) or xyz.dtype != torch.float32
+                or covs.dtype != torch.float32 or mask.dtype != torch.bool or not 0 < b <= 65535 or n == 0
+                or (tgt_covs is not None and (tgt_covs.dtype != torch.float32 or tgt_covs.shape != (m, 3, 3)))
+                or (tgt_xyz is not None and (tgt_xyz.dtype != torch.float32 or tgt_xyz.shape != (m, 3)))
+                or (tgt_mask is not None and (tgt_mask.dtype != torch.bool or tgt_mask.shape != (m,)))):
+            raise ValueError(f"gicp prepared: source xyz {tuple(xyz.shape)} {xyz.dtype}, mask {tuple(mask.shape)} "
+                             f"{mask.dtype}, covariances {tuple(covs.shape)} {covs.dtype}; target "
+                             + ", ".join(f"{tuple(x.shape)} {x.dtype}" for x in tgt if x is not None)
+                             + f"; devices {sorted(map(str, devices))}")
+        blocks, span = _layout(n)
+        self.stream = kernels.stream(xyz)
+        tickets, scratch = kernels.workspace(xyz, self.stream, "gicp", b, 2 * b * blocks * _ROW)
+        self._keep = (xyz, mask, covs, *tgt, tickets, scratch)  # what the pointers below name
+        a = self.args = GicpArgs()
+        a.xyz, a.smask, a.covs = xyz.data_ptr(), mask.data_ptr(), covs.data_ptr()
+        a.tgt_covs, a.tgt_xyz, a.tmask = (None if x is None else x.data_ptr() for x in tgt)
+        a.max_d2 = max_corr_dist * max_corr_dist
+        a.tickets, a.partial = tickets.data_ptr(), scratch.data_ptr()
+        a.batch, a.n, a.blocks, a.span = b, n, blocks, span
+        self._ref = ctypes.byref(a)
+        self._step = kernels.load("gicp").hgs_gicp_step
+
+    # -- outputs: rings of two slots, each made at its first use
+    def _next(self, kind: str) -> tuple:
+        ring = self._rings.get(kind)
+        if ring is None:
+            ring = self._rings[kind] = [[None, None], 1]
+        ring[1] ^= 1
+        slot = ring[0][ring[1]]
+        if slot is None:
+            slot = ring[0][ring[1]] = self._make(kind)
+        return slot
+
+    def _make(self, kind: str) -> tuple:
+        """A slot: the tensors the kernel writes, then the views a call returns."""
+        b, n, dev, one = self.b, self.n, self.device, self.one
+        if kind == "lin":
+            out = torch.empty((b, 43), dtype=torch.float32, device=dev)
+            return (out,) + self._views(out)
+        if kind == "cost":
+            out = torch.empty((b,), dtype=torch.float32, device=dev)
+            return out, (out[0] if one else out)
+        Mw = torch.empty((b, n, 3, 3), dtype=torch.float32, device=dev)
+        num = torch.empty((b,), dtype=torch.int32, device=dev)
+        return Mw, num, (Mw[0] if one else Mw), (num[0] if one else num)
+
+    def _views(self, rows: torch.Tensor) -> tuple:
+        """(H, b, cost) of the kernel's (B, 43) rows, shaped as the problems."""
+        H, bb, c = rows[:, 6:42].view(self.b, 6, 6), rows[:, :6], rows[:, 42]
+        return (H[0], bb[0], c[0]) if self.one else (H, bb, c)
+
+    def _launch(self, form: int, T: torch.Tensor, idx: torch.Tensor, flags: Optional[torch.Tensor],
+                Mw: torch.Tensor, num: Optional[torch.Tensor], out: Optional[torch.Tensor], name: str) -> None:
+        """One launch of ``form``: it reads ``flags`` (associating forms) or
+        ``Mw`` (the others) and writes Mw and num (associating forms) and
+        ``out`` (the others)."""
+        a = self.args
+        a.form, a.T, a.idx, a.Mw = form, T.data_ptr(), idx.data_ptr(), Mw.data_ptr()
+        if flags is not None:
+            if self.tgt_mask is None:
+                a.found, a.d2 = flags.data_ptr(), None
+            else:
+                a.found, a.d2 = None, flags.data_ptr()
+            a.num = num.data_ptr()
+        if out is not None:
+            a.out = out.data_ptr()
+        kernels.check(self._step(self._ref, self.stream), name)
+
+    def _plain_gate(self, flags: torch.Tensor):
+        return flags if self.tgt_mask is None else DistanceGate(flags, self.tgt_mask, self.max_corr_dist)
+
+    def associate_linearize(self, T: torch.Tensor, idx: torch.Tensor, flags: torch.Tensor):
+        """(corr, (H, b, cost, num_inliers[, rows])) at T: the fused form."""
+        if self.cpu:
+            return associate_linearize_plain(T, self.src, self.tgt_covs, self.tgt_xyz, idx, self._plain_gate(flags))
+        Mw_all, num_all, Mw, num = self._next("mw")
+        out, H, bb, c = self._next("lin")
+        self._launch(FUSED, T, idx, flags, Mw_all, num_all, out, "gicp associate_linearize")
+        associate_linearize.launches += 1
+        return GicpCorr(idx, Mw, num), (H, bb, c, num, out)
+
+    def associate(self, T: torch.Tensor, idx: torch.Tensor, flags: torch.Tensor) -> GicpCorr:
+        """The correspondence state at T: the associate-only form."""
+        if self.cpu:
+            return associate_plain(T, self.src, self.tgt_covs, idx, self._plain_gate(flags))
+        Mw_all, num_all, Mw, num = self._next("assoc")
+        self._launch(ASSOCIATE, T, idx, flags, Mw_all, num_all, None, "gicp associate")
+        associate.launches += 1
+        return GicpCorr(idx, Mw, num)
+
+    def linearize(self, T: torch.Tensor, corr: GicpCorr):
+        """(H, b, cost, num_inliers[, rows]) at T under the carried corr (its
+        Mw contiguous, shaped as the ring's)."""
+        if self.cpu:
+            return linearize_plain(T, corr, self.src, self.tgt_xyz)
+        out, H, bb, c = self._next("lin")
+        self._launch(LINEARIZE, T, corr.idx, None, corr.Mw, None, out, "gicp linearize")
+        linearize.launches += 1
+        return H, bb, c, corr.num, out
+
+    def select(self, cond: torch.Tensor, new: tuple, old: tuple) -> tuple:
+        """Per field of two linearizations (H, b, cost, num_inliers[, rows])
+        of these problems, ``new`` where the () or (B,) ``cond`` holds, else
+        ``old`` (the LM loop's carried linearization). On the card one
+        torch.where over the kernel's rows, and none for the counts when both
+        are one tensor (the carried correspondences')."""
+        if self.cpu:
+            return _select_rows(cond, new, old)
+        rows = torch.where(cond.reshape(-1, 1), new[4], old[4])
+        num = new[3] if new[3] is old[3] else torch.where(cond, new[3], old[3])
+        return self._views(rows) + (num, rows)
+
+    def cost(self, T: torch.Tensor, corr: GicpCorr) -> torch.Tensor:
+        """The cost of ``linearize`` alone, its bits."""
+        if self.cpu:
+            return cost_plain(T, corr, self.src, self.tgt_xyz)
+        out, c = self._next("cost")
+        self._launch(COST, T, corr.idx, None, corr.Mw, None, out, "gicp cost")
+        cost.launches += 1
+        return c
+
+
+def _gate_parts(name: str, T: torch.Tensor, src: GicpCloud, idx: torch.Tensor,
+                gate: Union[DistanceGate, torch.Tensor]):
+    """The per-call checks of an associating wrapper: (tgt_mask,
+    max_corr_dist, flags) of the gate."""
+    dist = isinstance(gate, DistanceGate)
+    flags = gate.d2 if dist else gate
+    if (idx.dtype != torch.int32 or idx.shape != src.mask.shape or flags.shape != src.mask.shape
+            or flags.dtype != (torch.float32 if dist else torch.bool) or T.shape[:-2] != src.mask.shape[:-1]):
+        raise ValueError(f"{name}: idx {tuple(idx.shape)} {idx.dtype}, gate {tuple(flags.shape)} {flags.dtype}, "
+                         f"source mask {tuple(src.mask.shape)}, poses {tuple(T.shape)}")
+    return (gate.tgt_mask, gate.max_corr_dist, flags) if dist else (None, 0.0, flags)
+
+
+def associate(T: torch.Tensor, src: GicpCloud, tgt_covs: torch.Tensor, idx: torch.Tensor,
+              gate: Union[DistanceGate, torch.Tensor]) -> GicpCorr:
+    """The correspondence state at the poses T (4, 4) or (B, 4, 4) of the
+    sources (N, ...) or (B, N, ...), after the search named idx (int32) in
+    the target: the gate (a DistanceGate for GICP, the voxel lookup's
+    ``found`` flags for VGICP), M = inv3x3(tgt_covs[idx] + R C_src R^T)
+    zeroed where the gate fails, and the valid count (the associate-only
+    form of ``gicp_step_kernel`` on the card: one launch, the plain twin's
+    bits)."""
+    dist = isinstance(gate, DistanceGate)
+    _check("gicp associate", T, src.covs, src.mask, tgt_covs, idx, gate.d2 if dist else gate,
+           *([gate.tgt_mask] if dist else []))
+    if T.device.type == "cpu":
+        return associate_plain(T, src, tgt_covs, idx, gate)
+    tgt_mask, max_corr_dist, flags = _gate_parts("gicp associate", T, src, idx, gate)
+    prep = Prepared(src, tgt_covs, None, tgt_mask, max_corr_dist)
+    return prep.associate(T.contiguous(), idx.contiguous(), flags.contiguous())
+
+
+associate.launches = 0
+
+
+def associate_linearize(T: torch.Tensor, src: GicpCloud, tgt_covs: torch.Tensor, tgt_xyz: torch.Tensor,
+                        idx: torch.Tensor, gate: Union[DistanceGate, torch.Tensor]):
+    """``associate`` then ``linearize`` at the same poses in one launch (the
+    fused form): (corr, (H, b, cost, num_inliers)), the two calls' bits."""
+    dist = isinstance(gate, DistanceGate)
+    _check("gicp associate_linearize", T, src.xyz, src.covs, src.mask, tgt_covs, tgt_xyz, idx,
+           gate.d2 if dist else gate, *([gate.tgt_mask] if dist else []))
+    if T.device.type == "cpu":
+        return associate_linearize_plain(T, src, tgt_covs, tgt_xyz, idx, gate)
+    tgt_mask, max_corr_dist, flags = _gate_parts("gicp associate_linearize", T, src, idx, gate)
+    prep = Prepared(src, tgt_covs, tgt_xyz, tgt_mask, max_corr_dist)
+    corr, lin = prep.associate_linearize(T.contiguous(), idx.contiguous(), flags.contiguous())
+    return corr, lin[:4]
+
+
+associate_linearize.launches = 0
+
+
+def _carried(name: str, T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt_xyz: torch.Tensor) -> Prepared:
+    """The per-call checks of a wrapper under carried correspondences, and
+    its prepared call."""
     _check(name, T, src.xyz, corr.idx, corr.Mw, tgt_xyz)
-    Tb, xyz, idx, Mw = _batched(T, src.xyz, corr.idx, corr.Mw)
-    tgt_xyz = tgt_xyz.contiguous()
-    b, n = idx.shape
-    if (idx.dtype != torch.int32 or xyz.shape != (b, n, 3) or Mw.shape != (b, n, 3, 3) or xyz.dtype != torch.float32
-            or Mw.dtype != torch.float32 or tgt_xyz.dtype != torch.float32 or tgt_xyz.shape[-1:] != (3,)):
-        raise ValueError(f"{name}: xyz {tuple(xyz.shape)} {xyz.dtype}, idx {tuple(idx.shape)} {idx.dtype}, "
-                         f"Mw {tuple(Mw.shape)} {Mw.dtype}, target {tuple(tgt_xyz.shape)} {tgt_xyz.dtype}")
-    nblk, st = _blocks(n), kernels.stream(Tb)
-    tickets, partial = kernels.workspace(Tb, st, "gicp", b, b * nblk * _ROW)
-    out = torch.empty((b,) if cost_only else (b, 43), dtype=torch.float32, device=T.device)
-    kernels.check(kernels.load("gicp").hgs_gicp_linearize(
-        Tb.data_ptr(), b, n, xyz.data_ptr(), idx.data_ptr(), Mw.data_ptr(), tgt_xyz.data_ptr(),
-        int(cost_only), nblk, partial.data_ptr(), tickets.data_ptr(), out.data_ptr(), st), name)
-    return out
+    if (corr.idx.dtype != torch.int32 or corr.idx.shape != src.xyz.shape[:-1] or T.shape[:-2] != src.xyz.shape[:-2]
+            or corr.Mw.shape != src.xyz.shape[:-1] + (3, 3) or corr.Mw.dtype != torch.float32
+            or tgt_xyz.dtype != torch.float32 or tgt_xyz.ndim != 2 or tgt_xyz.shape[-1:] != (3,)):
+        raise ValueError(f"{name}: poses {tuple(T.shape)}, xyz {tuple(src.xyz.shape)} {src.xyz.dtype}, idx "
+                         f"{tuple(corr.idx.shape)} {corr.idx.dtype}, Mw {tuple(corr.Mw.shape)} {corr.Mw.dtype}, "
+                         f"target {tuple(tgt_xyz.shape)} {tgt_xyz.dtype}")
+    return Prepared(src, None, tgt_xyz)
 
 
 def linearize(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt_xyz: torch.Tensor):
     """H (..., 6, 6), b (..., 6), cost (...) and inliers of the carried
     correspondences at the poses T (4, 4) or (B, 4, 4) against the target
-    points ``tgt_xyz`` (M, 3) (GICP's cloud, VGICP's voxel means)
-    (``gicp_linearize_kernel`` on the card: one launch, its last block sums
-    the partial rows in float64)."""
+    points ``tgt_xyz`` (M, 3) (GICP's cloud, VGICP's voxel means) (the
+    linearize form of ``gicp_step_kernel`` on the card: one launch)."""
     if T.device.type == "cpu":
         return linearize_plain(T, corr, src, tgt_xyz)
-    out = _reduce("gicp linearize", T, corr, src, tgt_xyz, cost_only=False)
-    linearize.launches += 1
-    b, H, cost_ = out.split((6, 36, 1), dim=1)
-    H, cost_ = H.view(-1, 6, 6), cost_.view(-1)
-    if T.ndim == 2:
-        return H[0], b[0], cost_[0], corr.num
-    return H, b, cost_, corr.num
+    prep = _carried("gicp linearize", T, corr, src, tgt_xyz)
+    return prep.linearize(T.contiguous(), GicpCorr(corr.idx.contiguous(), corr.Mw.contiguous(), corr.num))[:4]
 
 
 linearize.launches = 0
 
 
 def cost(T: torch.Tensor, corr: GicpCorr, src: GicpCloud, tgt_xyz: torch.Tensor) -> torch.Tensor:
-    """The cost of ``linearize`` alone (its kernel's cost_only
-    instantiation on the card, the full call's bits)."""
+    """The cost of ``linearize`` alone (the cost form on the card, the full
+    call's bits)."""
     if T.device.type == "cpu":
         return cost_plain(T, corr, src, tgt_xyz)
-    out = _reduce("gicp cost", T, corr, src, tgt_xyz, cost_only=True)
-    cost.launches += 1
-    return out[0] if T.ndim == 2 else out
+    prep = _carried("gicp cost", T, corr, src, tgt_xyz)
+    return prep.cost(T.contiguous(), GicpCorr(corr.idx.contiguous(), corr.Mw.contiguous(), corr.num))
 
 
 cost.launches = 0
@@ -343,25 +521,27 @@ def align(
     With a leading batch on the source and guess (B, 4, 4), the B sources
     align against the one target (base.lm_loop_batched): an AlignResult with
     a leading batch, whose row b is ``align(tgt, src[b], guess[b])`` up to
-    float32 summation order."""
+    float32 summation order.
+
+    The kernels' inputs are checked once here (``Prepared``); the loop
+    launches through the prepared calls."""
+    prep = Prepared(src, tgt.covs, tgt.xyz, tgt.mask, max_corr_dist)
+    if not prep.cpu:
+        _check("gicp align", guess, src.xyz, tgt.xyz)
+        guess = guess.contiguous()
     r_max = None
     if reassoc_displacement:
         r_max = torch.sqrt(torch.where(src.mask, (src.xyz * src.xyz).sum(-1), 0.0).amax(-1))
-    kw = dict(
-        linearize_at=lambda T, corr: _linearize_at(T, corr, src, tgt),
-        cost_at=lambda T, corr: _cost_at(T, corr, src, tgt),
+    return (lm_loop if guess.ndim == 2 else lm_loop_batched)(
+        associate=lambda T: prep.associate(T, *_correspond(T, src, tgt)),
+        linearize_at=prep.linearize,
+        cost_at=prep.cost,
         guess=guess,
         max_iterations=max_iterations,
         transformation_epsilon=transformation_epsilon,
         lm_init_lambda_factor=lm_init_lambda_factor,
         reassoc_displacement=reassoc_displacement,
         r_max=r_max,
+        associate_linearize=lambda T: prep.associate_linearize(T, *_correspond(T, src, tgt)),
+        select=prep.select,
     )
-    if guess.ndim == 2:
-        return lm_loop(associate=lambda T: _associate(T, src, tgt, max_corr_dist), **kw)
-
-    def associate_rows(T, rows):
-        part = GicpCloud(xyz=src.xyz[rows], mask=src.mask[rows], covs=src.covs[rows])
-        return _associate(T, part, tgt, max_corr_dist)
-
-    return lm_loop_batched(associate=associate_rows, **kw)

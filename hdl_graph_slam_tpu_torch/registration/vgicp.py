@@ -13,10 +13,11 @@ FAST_VGICP_CUDA): reg_resolution voxel size, otherwise GICP parameters.
 - Each source point matches the voxel that contains it: the DIRECT1 lookup
   of ``ndt.associate_cells`` (``ndt_associate_kernel<1>`` on the card; a
   dense-grid read, or the int32 key search without a grid).
-- ``gicp.associate`` with the lookup's found flags as its gate
-  (``gicp_associate_kernel``), then the distribution-to-distribution
-  Mahalanobis LM of GICP (base.lm_loop_batched) through ``gicp.linearize``
-  and ``gicp.cost`` against the voxel means (``gicp_linearize_kernel``).
+- GICP's association with the lookup's found flags as its gate, then the
+  distribution-to-distribution Mahalanobis LM of GICP (base.lm_loop_batched)
+  against the voxel means, through ``gicp.Prepared``: the fused
+  associate-and-linearize form of ``gicp_step_kernel`` at every
+  association, then its linearize or cost form for the trials.
 
 ``align`` takes one source or a leading batch of B sources against one
 target (the loop detector's candidates), with the semantics of ``jax.vmap``
@@ -82,12 +83,18 @@ def preprocess_target(cloud: PointCloud, resolution: float, max_voxels: int = 81
                        resolution=float(resolution), origin=origin, grid=grid)
 
 
+def _lookup(T: torch.Tensor, src: GicpCloud, tgt: VgicpTarget):
+    """The voxel lookup at the poses T (B, 4, 4) of the B sources (B, N, 3):
+    (idx, found), each (B, N), in one ``ndt_associate_kernel<1>`` launch."""
+    idx, found = ndt.associate_cells(tgt, tgt.grid, src.xyz, src.mask, T, "DIRECT1")
+    return idx[..., 0], found[..., 0]
+
+
 def _associate(T: torch.Tensor, src: GicpCloud, tgt: VgicpTarget) -> GicpCorr:
     """Voxel correspondences + Mahalanobis at the poses T (B, 4, 4) of the B
     sources (B, N, 3): one voxel lookup and one association launch for all
     of them."""
-    idx, found = ndt.associate_cells(tgt, tgt.grid, src.xyz, src.mask, T, "DIRECT1")
-    return gicp.associate(T, src, tgt.covs, idx[..., 0], found[..., 0])
+    return gicp.associate(T, src, tgt.covs, *_lookup(T, src, tgt))
 
 
 def align(
@@ -101,29 +108,31 @@ def align(
 ) -> AlignResult:
     """Align a GICP-preprocessed source onto the voxel target from ``guess``
     (4, 4), or a leading batch (B, N, 3) with (B, 4, 4) (base.lm_loop_batched).
-    reassoc_displacement: see gicp.align (0.0 = per-iteration re-association)."""
+    reassoc_displacement: see gicp.align (0.0 = per-iteration re-association).
+    The kernels' inputs are checked once here (``gicp.Prepared``)."""
     batched = guess.ndim == 3
     if not batched:
         src = GicpCloud(xyz=src.xyz[None], mask=src.mask[None], covs=src.covs[None])
         guess = guess[None]
+    prep = gicp.Prepared(src, tgt.covs, tgt.means)
+    if not prep.cpu:
+        gicp._check("vgicp align", guess, src.xyz, tgt.means)
+        guess = guess.contiguous()
     r_max = None
     if reassoc_displacement:
         r_max = torch.sqrt(torch.where(src.mask, (src.xyz * src.xyz).sum(-1), 0.0).amax(-1))
 
-    def associate_rows(T, rows):
-        if rows.numel() == src.xyz.shape[0]:  # every problem: no copy of the sources
-            return _associate(T, src, tgt)
-        return _associate(T, GicpCloud(xyz=src.xyz[rows], mask=src.mask[rows], covs=src.covs[rows]), tgt)
-
     out = lm_loop_batched(
-        associate=associate_rows,
-        linearize_at=lambda T, corr: gicp.linearize(T, corr, src, tgt.means),
-        cost_at=lambda T, corr: gicp.cost(T, corr, src, tgt.means),
+        associate=lambda T: prep.associate(T, *_lookup(T, src, tgt)),
+        linearize_at=prep.linearize,
+        cost_at=prep.cost,
         guess=guess,
         max_iterations=max_iterations,
         transformation_epsilon=transformation_epsilon,
         lm_init_lambda_factor=lm_init_lambda_factor,
         reassoc_displacement=reassoc_displacement,
         r_max=r_max,
+        associate_linearize=lambda T: prep.associate_linearize(T, *_lookup(T, src, tgt)),
+        select=prep.select,
     )
     return out if batched else AlignResult(*[x[0] for x in out])

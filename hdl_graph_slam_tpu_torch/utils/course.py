@@ -20,12 +20,18 @@ BENCH_FRAMES = 256  # frames measured (frame 0 bootstraps the keyframe)
 BENCH_RAW_CAPACITY = 16384
 
 
-def make_course(n_frames: int = BENCH_FRAMES, step: float = BENCH_STEP, seed: int = 0):
-    """List of n_frames+1 raw scans, (M_i, 3) float32 in the sensor frame."""
-    town = L.make_town(seed=seed + 1, blocks=3)
-    model = L.LidarModel(rings=32, azimuth_steps=512, max_range=60.0, range_noise=0.02, dropout=0.05)
+def bench_course_scene(seed: int = 0):
+    """The bench course's town and lidar model: (town, model)."""
+    return (L.make_town(seed=seed + 1, blocks=3),
+            L.LidarModel(rings=32, azimuth_steps=512, max_range=60.0, range_noise=0.02, dropout=0.05))
+
+
+def bench_course_poses(n_frames: int = BENCH_FRAMES, step: float = BENCH_STEP, seed: int = 0) -> list:
+    """The n_frames+1 sensor poses (4, 4) of make_course, its random draws
+    in bench.py's order; scan i is ``L.scan(town, poses[i], model,
+    seed=100000 * seed + i)``."""
     rng = np.random.default_rng(777 + seed)
-    scans = []
+    poses = []
     for i in range(n_frames + 1):
         roll, pitch = rng.normal(0.0, np.deg2rad(0.4), 2)
         cr, sr = np.cos(roll), np.sin(roll)
@@ -37,8 +43,15 @@ def make_course(n_frames: int = BENCH_FRAMES, step: float = BENCH_STEP, seed: in
         T[0, 3] = -5.0 + step * i  # along the y=-5 street of the block grid
         T[1, 3] = -5.0
         T[2, 3] = 1.8 + rng.normal(0.0, 0.01)
-        scans.append(L.scan(town, T, model, seed=100000 * seed + i))
-    return scans
+        poses.append(T)
+    return poses
+
+
+def make_course(n_frames: int = BENCH_FRAMES, step: float = BENCH_STEP, seed: int = 0):
+    """List of n_frames+1 raw scans, (M_i, 3) float32 in the sensor frame."""
+    town, model = bench_course_scene(seed)
+    return [L.scan(town, T, model, seed=100000 * seed + i)
+            for i, T in enumerate(bench_course_poses(n_frames, step, seed))]
 
 
 # -- benchmarks/golden_town.py's course, "base" and "floor" modes ----------------

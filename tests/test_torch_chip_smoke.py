@@ -183,7 +183,9 @@ def test_device_ops_per_call_counts_device_events(monkeypatch):
 def test_device_ops_per_call_retakes_partial_traces(monkeypatch):
     """A trace that lost some of its calls' device events is taken again
     (dropped events only lower the count); a call of two operations reads
-    2.0 at once; a trace short every time is returned as it is."""
+    2.0 at once; when every trace is short, the calls are counted by graph
+    capture, whose count is taken only where it is a whole number of kernel
+    nodes a call; else (no capture, other nodes) the short count stays."""
     traces = []
 
     class FakeProfile:
@@ -218,6 +220,8 @@ def test_device_ops_per_call_retakes_partial_traces(monkeypatch):
         return real_exit(self, *exc)
 
     monkeypatch.setattr(FakeProfile, "__exit__", exit_losing)
+    graphs = []
+    monkeypatch.setattr(chip_smoke, "graph_ops_per_call", lambda fn, calls: graphs.pop(0))
     assert chip_smoke.device_ops_per_call(call(["radius_count_kernel"]), pad_s=0.0) == (1.0, ["radius_count_kernel"])
     assert len(traces) == 3
     traces.clear()
@@ -225,7 +229,29 @@ def test_device_ops_per_call_retakes_partial_traces(monkeypatch):
     assert len(traces) == 1
     traces.clear()
     kept = iter([3] * 5)
+    graphs.append(None)  # no capture: the short count stays
     assert chip_smoke.device_ops_per_call(call(["k"]), pad_s=0.0, tries=5)[0] == 0.3 and len(traces) == 5
+    traces.clear()
+    kept = iter([9] * 5)  # one event of each trace lost, the graph whole
+    graphs.append((1.0, {0: 10}))
+    assert chip_smoke.device_ops_per_call(call(["k"]), pad_s=0.0, tries=5) == (1.0, ["k"]) and len(traces) == 5
+    traces.clear()
+    kept = iter([9] * 5)  # a memset node beside each kernel is not a whole count of kernels
+    graphs.append((2.0, {0: 10, 2: 10}))
+    assert chip_smoke.device_ops_per_call(call(["k"]), pad_s=0.0, tries=5)[0] == 0.9
+    traces.clear()
+    kept = iter([9] * 5)
+    graphs.append((0.5, {0: 5}))
+    assert chip_smoke.device_ops_per_call(call(["k"]), pad_s=0.0, tries=5)[0] == 0.9
+    assert not graphs
+
+
+def test_graph_ops_per_call_is_none_without_a_capture():
+    """Where no CUDA graph can be made (no card here), graph capture counts
+    nothing and the caller keeps the profiler's count."""
+    calls = []
+    assert chip_smoke.graph_ops_per_call(lambda: calls.append(1)) is None
+    assert not calls
 
 
 def test_ndt_trial_poses_halve_along_the_newton_direction():
@@ -829,14 +855,23 @@ def test_run_ranks_stops_failed_and_hung_ranks(tmp_path, monkeypatch):
 
 
 def test_launch_counts_read_the_gicp_wrappers():
-    """The GICP wrappers' counters appear under chip_smoke.GICP_COUNTERS'
-    names (the CLI child hands them back too); reset_launches zeroes them."""
+    """The GICP wrappers' counters (one a form of gicp_step_kernel) appear
+    under chip_smoke.GICP_COUNTERS' names (the CLI child hands them back
+    too; the ungated forms are the CLI's required ones); reset_launches
+    zeroes them; require_gicp_launches holds a path to 1 + 2 x its LM
+    iterations GICP launches a frame."""
     from hdl_graph_slam_tpu_torch.registration import gicp
 
     gicp.associate.launches, gicp.linearize.launches, gicp.cost.launches = 2, 3, 4
+    gicp.associate_linearize.launches = 5
     got = chip_smoke.read_launches(knn)
-    assert (got["gicp_associate"], got["gicp_linearize"], got["gicp_cost"]) == (2, 3, 4)
-    assert set(chip_smoke.GICP_COUNTERS) <= set(chip_smoke.CLI_REQUIRED)
+    assert (got["gicp_associate"], got["gicp_linearize"], got["gicp_cost"], got["gicp_associate_linearize"]) == (
+        2, 3, 4, 5)
+    assert set(chip_smoke.GICP_UNGATED) <= set(chip_smoke.CLI_REQUIRED)
+    assert set(chip_smoke.GICP_GATED) | set(chip_smoke.GICP_UNGATED) <= set(chip_smoke.GICP_COUNTERS)
+    chip_smoke.require_gicp_launches("t", got, 2, 3.0)  # 7 a frame at 3 iterations
+    with pytest.raises(RuntimeError, match="GICP launches a frame"):
+        chip_smoke.require_gicp_launches("t", got, 2, 2.0)
     chip_smoke.reset_launches(knn)
     assert set(chip_smoke.read_launches(knn).values()) == {0}
 
@@ -857,11 +892,18 @@ def test_gicp_bounds_take_the_larger_of_bytes_and_operations():
     ms, by = chip_smoke.gicp_bounds("gicp_linearize", w, peak)
     assert by == "bytes" and ms == pytest.approx(1e3 * (64 + 43 * 4 + reads) / hbm)
     assert chip_smoke.gicp_bounds("gicp_cost", w, peak)[0] == pytest.approx(1e3 * (64 + 4 + reads) / hbm)
+    # the fused form: the association's bytes, the valid rows' points and named target points, the rows out
+    ms, by = chip_smoke.gicp_bounds("gicp_associate_linearize", w, peak)
+    assert by == "bytes" and ms == pytest.approx(1e3 * (68 + 8192 * 81 + 5387 * 37 + 43 * 4 + 12 * 6373
+                                                        + 12 * 5139) / hbm)
     slow = peak / 1000
     ms, by = chip_smoke.gicp_bounds("gicp_linearize", w, slow)
     assert by == "operations" and ms == pytest.approx(1e3 * 6373 * chip_smoke.GICP_LIN_OPS_PER_ROW / slow)
     ms, by = chip_smoke.gicp_bounds("gicp_associate", w, slow)
     assert by == "operations" and ms == pytest.approx(1e3 * 8192 * chip_smoke.GICP_ASSOC_OPS_PER_ROW / slow)
+    ms, by = chip_smoke.gicp_bounds("gicp_associate_linearize", w, slow)
+    assert by == "operations" and ms == pytest.approx(1e3 * (8192 * chip_smoke.GICP_ASSOC_OPS_PER_ROW
+                                                             + 6373 * chip_smoke.GICP_LIN_OPS_PER_ROW) / slow)
 
 
 def gicp_problems(B=2, n=600):
@@ -893,36 +935,54 @@ def gicp_problems(B=2, n=600):
 def test_check_gicp_gates_the_kernels_against_the_plain_twins(monkeypatch):
     """check_gicp passes wrappers that compute the plain twins' function
     with batch-invariant rows (the kernels' property; here a per-problem
-    plain call stands in, since the plain einsum's b is not), for both
-    gates, and fails a linearization off by 1e-3 of its largest entry and
-    rows that depend on the batch."""
+    plain call stands in for every linearization, since the plain einsum's
+    b is not), for both gates, and fails a linearization off by 1e-3 of its
+    largest entry, a fused call that differs from associate then linearize,
+    and rows that depend on the batch."""
     gicp, tgt, src, T, idx, d2 = gicp_problems()
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    plain, plain_cost = gicp.linearize_plain, gicp.cost_plain
 
-    def per_problem(T, corr, src, tgt_xyz):
-        if T.ndim == 2:
-            return gicp.linearize_plain(T, corr, src, tgt_xyz)
-        rows = [gicp.linearize_plain(T[b], gicp.GicpCorr(*[x[b] for x in corr]),
-                                     gicp.GicpCloud(src.xyz[b], src.mask[b], src.covs[b]), tgt_xyz)
-                for b in range(T.shape[0])]
-        return tuple(torch.stack(x) for x in zip(*rows))
+    def rows_of(fn):
+        def per_problem(T, corr, src, tgt_xyz):
+            if T.ndim == 2:
+                return fn(T, corr, src, tgt_xyz)
+            rows = [fn(T[b], gicp.GicpCorr(*[x[b] for x in corr]), gicp.GicpCloud(src.xyz[b], src.mask[b],
+                                                                                   src.covs[b]), tgt_xyz)
+                    for b in range(T.shape[0])]
+            return tuple(torch.stack(x) for x in zip(*rows)) if isinstance(rows[0], tuple) else torch.stack(rows)
 
+        return per_problem
+
+    per_problem = rows_of(plain)
+    monkeypatch.setattr(gicp, "linearize_plain", per_problem)  # the fused twin's and the prepared call's too
     monkeypatch.setattr(gicp, "linearize", per_problem)
+    monkeypatch.setattr(gicp, "cost_plain", rows_of(plain_cost))
     gate = gicp.DistanceGate(d2, tgt.mask, chip_smoke.GICP_MAX_CORR_M)
     row, corr = chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, gate)
     assert row["Mw_identical"] and row["single_identical"] and row["repeat_identical"] and row["cost_only_identical"]
+    assert row["fused_identical"] and row["prepared_identical"] and row["trial_identical"]
     assert row["valid"] == corr.num.tolist() and min(row["valid"]) > 400
+    assert max(row["H_err"], row["b_err"], row["cost_err"]) < 1e-5 and len(row["plain_f64_err"]) == 3
     row, _ = chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, d2 < 0.01)
     assert row["gate"] == "found" and row["valid"] == (d2 < 0.01).sum(-1).tolist()
 
-    def off(T, corr, src, tgt_xyz):
+    def off(T, corr, src, tgt_xyz):  # in float32, as the kernel's forms; the float64 reference as it is
         H, b, c, n = per_problem(T, corr, src, tgt_xyz)
-        return H + 1e-3 * H.abs().amax((-1, -2), keepdim=True), b, c, n
+        if T.dtype == torch.float32:
+            H = H + 1e-3 * H.abs().amax((-1, -2), keepdim=True)
+        return H, b, c, n
 
+    monkeypatch.setattr(gicp, "linearize_plain", off)
     monkeypatch.setattr(gicp, "linearize", off)
     with pytest.raises(RuntimeError, match="linearization"):
         chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, gate)
-    monkeypatch.setattr(gicp, "linearize", gicp.linearize_plain)  # b's rows depend on the batch on the CPU
+    monkeypatch.setattr(gicp, "linearize_plain", per_problem)
+    with pytest.raises(RuntimeError, match="fused call"):
+        chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, gate)
+    monkeypatch.setattr(gicp, "linearize_plain", plain)  # b's rows depend on the batch on the CPU
+    monkeypatch.setattr(gicp, "linearize", plain)
+    monkeypatch.setattr(gicp, "cost_plain", plain_cost)
     with pytest.raises(RuntimeError, match="single call"):
         chip_smoke.check_gicp("t", T, src, tgt.covs, tgt.xyz, idx, gate)
 

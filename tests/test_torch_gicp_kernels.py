@@ -5,9 +5,12 @@ registration/gicp.py), on the CPU.
 The kernels run only on the card. Here the wrappers' CPU route is held to
 the plain twins bit for bit, the plain twins to the JAX package's
 ``_associate`` / ``_linearize_at`` / ``_cost_at`` of GICP and VGICP, a batch
-to its single problems, the kernels' arithmetic (the association's order of
-roundings, the linearization's per-point terms) to the plain twins, and the
-wrappers' launch arithmetic and input checks to the CUDA source.
+to its single problems, the fused twin to the association then the
+linearization, the kernels' arithmetic (the association's order of
+roundings, the linearization's per-point terms) to the plain twins, the
+wrappers' launch arithmetic and input checks to the CUDA source, and the LM
+loop that launches each form once per pose and correspondence set to the
+loop that repeated them (a copy of it kept here), bit for bit.
 
 Inputs are numpy from a seed: points on a few planes of a small scene
 (2048 rows, padded rows and far outliers among them) with the port's
@@ -21,6 +24,7 @@ plane covariances), H, b and the cost within 1e-4 of their largest |entry|
 import functools
 import os
 import re
+from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +35,8 @@ from hdl_graph_slam_tpu.registration import gicp as jgicp
 from hdl_graph_slam_tpu.registration import vgicp as jvgicp
 from hdl_graph_slam_tpu_torch.core import se3
 from hdl_graph_slam_tpu_torch.core.cloud import PAD_COORD, PointCloud
-from hdl_graph_slam_tpu_torch.registration import gicp, vgicp
+from hdl_graph_slam_tpu_torch.ops.small_solve import solve_spd
+from hdl_graph_slam_tpu_torch.registration import base, gicp, vgicp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "hdl_graph_slam_tpu_torch", "csrc", "gicp.cu")
@@ -122,7 +127,11 @@ def test_cpu_wrappers_are_the_plain_twins(batched):
     assert same(gicp.associate(T, src, tgt.covs, idx, found), gicp.associate_plain(T, src, tgt.covs, idx, found))
     assert same(gicp.linearize(T, corr, src, tgt.xyz), gicp.linearize_plain(T, corr, src, tgt.xyz))
     assert torch.equal(gicp.cost(T, corr, src, tgt.xyz), gicp.cost_plain(T, corr, src, tgt.xyz))
-    assert gicp.associate.launches == gicp.linearize.launches == gicp.cost.launches == 0
+    fc, fl = gicp.associate_linearize(T, src, tgt.covs, tgt.xyz, idx, gate)
+    pc, pl = gicp.associate_linearize_plain(T, src, tgt.covs, tgt.xyz, idx, gate)
+    assert same(fc, pc) and same(fl, pl)
+    assert (gicp.associate.launches == gicp.linearize.launches == gicp.cost.launches
+            == gicp.associate_linearize.launches == 0)
 
 
 # -- the plain twins against the JAX package ---------------------------------------------
@@ -200,6 +209,26 @@ def test_cost_only_is_the_full_calls_cost():
     for T, src in ((poses[0], srcs[0]), (poses, stack(srcs))):
         corr = gicp._associate(T, src, tgt, MAX_CORR)
         assert torch.equal(gicp.cost(T, corr, src, tgt.xyz), gicp.linearize(T, corr, src, tgt.xyz)[2])
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("gate_kind", ["distance", "found"])
+def test_fused_twin_is_associate_then_linearize(batched, gate_kind):
+    """associate_linearize_plain (the fused form's twin) gives
+    associate_plain then linearize_plain at the same poses bit for bit, and
+    each call repeated gives its bits again, with either gate at B = 1 and
+    B = 3; the linearization's cost is cost_plain's."""
+    tgt, srcs, poses = clouds()
+    src, T = (stack(srcs), poses) if batched else (srcs[0], poses[0])
+    idx, d2 = gicp._correspond(T, src, tgt)
+    gate = gicp.DistanceGate(d2, tgt.mask, MAX_CORR) if gate_kind == "distance" else d2 < 0.3
+    corr, lin = gicp.associate_linearize_plain(T, src, tgt.covs, tgt.xyz, idx, gate)
+    corr2 = gicp.associate_plain(T, src, tgt.covs, idx, gate)
+    assert same(corr, corr2) and same(lin, gicp.linearize_plain(T, corr2, src, tgt.xyz))
+    assert 0 < int(corr.num.min()) and int(corr.num.max()) < N
+    again = gicp.associate_linearize_plain(T, src, tgt.covs, tgt.xyz, idx, gate)
+    assert same(again[0], corr) and same(again[1], lin)
+    assert torch.equal(gicp.cost_plain(T, corr, src, tgt.xyz), lin[2])
 
 
 # -- the kernels' arithmetic ---------------------------------------------------------------
@@ -286,35 +315,47 @@ def source() -> str:
 
 
 def test_launch_constants_match_the_cuda_source():
-    """The wrapper's threads, block cap and partial row are gicp.cu's, its
-    block count is blocks_for(n) at every shape (the C entry point refuses
-    any other), and neither grid depends on the batch but as its y
-    dimension."""
-    c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", source())}
-    assert (gicp._THREADS, gicp._MAX_BLOCKS, gicp._ROW) == (c["kThreads"], c["kMaxBlocks"], c["kRow"])
-    assert c["kWidth"] == 28 <= c["kRow"] and c["kOut"] == 43
-    body = re.search(r"int blocks_for\(int n\) \{(.*?)\n\}", source(), re.S).group(1)
-    assert "(n + kThreads - 1) / kThreads" in body and "b < kMaxBlocks ? (b > 0 ? b : 1) : kMaxBlocks" in body
-    for n, want in [(1, 1), (256, 1), (257, 2), (4096, 16), (8192, 32), (16384, 64), (262144, 1024), (10**6, 1024)]:
-        assert gicp._blocks(n) == want, n
-    assert "const dim3 grd((n + kThreads - 1) / kThreads, batch);" in source()
-    assert "const dim3 grd(nblk, batch);" in source()
+    """The wrapper's forms, threads a block and scratch row are gicp.cu's;
+    its layout is layout_for(n) at every shape (the C entry point refuses
+    any other): equal spans of whole 4-row groups covering n, never more
+    rows a block than its threads, and the grid's y dimension the batch."""
+    src = source()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (gicp._THREADS, gicp._ROW) == (c["kThreads"], c["kRow"])
+    assert c["kWidth"] == 28 == c["kCountSlot"] < c["kRow"] and c["kOut"] == 43 and c["kRecord"] == 4 * (9 + 3)
+    assert "enum Form : int { kAssociate = 0, kFused = 1, kLinearize = 2, kCost = 3 };" in src
+    assert (gicp.ASSOCIATE, gicp.FUSED, gicp.LINEARIZE, gicp.COST) == (0, 1, 2, 3)
+    body = re.search(r"Layout layout_for\(int n\) \{(.*?)\n\}", src, re.S).group(1)
+    for line in ("const int blocks = n > 0 ? (n + kThreads - 1) / kThreads : 1;",
+                 "const int span = ((n + blocks - 1) / blocks + 3) / 4 * 4;", "return {blocks, span > 0 ? span : 4};"):
+        assert line in body, line
+    for n, layout in {1: (1, 4), 128: (1, 128), 129: (2, 68), 4096: (32, 128), 8192: (64, 128),
+                      8193: (65, 128)}.items():
+        assert gicp._layout(n) == layout, n
+    for n in (1, 3, 5, 1001, 2048, 4095, 4097, 8191, 12000, 16384, 100003):
+        blocks, span = gicp._layout(n)
+        assert span % 4 == 0 and blocks * span >= n > (blocks - 1) * span - 4 and span <= gicp._THREADS
+    assert "gicp_step_kernel<kForm><<<dim3(a.blocks, a.batch), kThreads, 0, st>>>(a);" in src
+    assert "__shared__ float4 smem4[kRecord * kThreads / 16];" in src
 
 
 def test_cuda_source_has_one_launch_per_call_and_no_float_atomics():
-    """Each entry point launches one kernel (the linearization one of its
-    two instantiations); the only atomics are int32 (tickets and counts);
-    the association rounds each product and sum on its own (no FMA
-    contraction) and takes the correctly rounded reciprocal."""
+    """The entry point launches one kernel (one launch statement, each form
+    an instantiation); the only atomic is the int32 ticket; the association
+    rounds each product and sum on its own (no FMA contraction) and takes
+    the correctly rounded reciprocal; the linearization's row terms are
+    explicit fmaf / IEEE products (one rounding order in every form); the
+    cost form's warp sum and the blocks' sum use no float atomics."""
     src = source()
-    assert sorted(set(re.findall(r"\b(atomic\w+)\(", src))) == ["atomicAdd", "atomicExch"]
-    assert sorted(re.findall(r"atomic\w+\(([a-z]+)", src)) == ["counters", "counters", "ticket"]
-    for entry, kernels in (("hgs_gicp_associate", ["gicp_associate_kernel"]),
-                           ("hgs_gicp_linearize", ["gicp_linearize_kernel<true>", "gicp_linearize_kernel<false>"])):
-        body = re.search(rf"int {entry}\(.*?\n\}}", src, re.S).group(0)
-        assert re.findall(r"(\w+(?:<\w+>)?)<<<grd, kThreads, 0,", body) == kernels
-    kernel = re.search(r"gicp_associate_kernel\(.*?\n\}", src, re.S).group(0)
-    assert "__frcp_rn(fabsf(det) < 1e-20f ? 1e-20f : det)" in kernel and "fmaf" not in kernel
+    assert re.findall(r"\b(atomic\w+)\(", src) == ["atomicAdd"]
+    assert re.findall(r"atomicAdd\((\w+)", src) == ["ticket"]
+    assert src.count("<<<") == 1 and "cudaLaunchKernelEx" not in src
+    entry = re.search(r"int hgs_gicp_step\(.*?\n\}", src, re.S).group(0)
+    assert re.findall(r"launch<(k\w+)>\(\*a, st\)", entry) == ["kAssociate", "kFused", "kLinearize", "kCost"]
+    assoc = re.search(r"void mahalanobis\(.*?\n\}", src, re.S).group(0)
+    assert "__frcp_rn(fabsf(det) < 1e-20f ? 1e-20f : det)" in assoc and "fmaf" not in assoc
+    terms = re.search(r"void add_terms\(.*?\n\}", src, re.S).group(0)
+    assert not re.search(r"\w\] \* \w", terms), "a bare product the compiler may contract"
     assert "__fdividef" not in src and "__expf" not in src
 
 
@@ -344,3 +385,315 @@ def test_kernel_input_checks():
         gicp.linearize(T, corr._replace(Mw=corr.Mw.double()), src, tgt.xyz.to(m))
     with pytest.raises(ValueError, match="target"):
         gicp.cost(T, corr, src, tgt.xyz.to(m)[:, :2])
+    with pytest.raises(ValueError, match="idx"):
+        gicp.associate_linearize(T, src, covs, tgt.xyz.to(m), idx[:9], gate)
+    with pytest.raises(ValueError, match="poses"):  # 3 poses for one problem's rows
+        gicp.associate(poses.to(m), src, covs, idx, gate)
+    with pytest.raises(ValueError, match="poses"):
+        gicp.cost(poses.to(m), corr, src, tgt.xyz.to(m))
+    # the prepared call checks the align's sources and target once
+    tx, tm = tgt.xyz.to(m), tgt.mask.to(m)
+    with pytest.raises(ValueError, match="gicp prepared"):
+        gicp.Prepared(gicp.GicpCloud(src.xyz.double(), src.mask, src.covs), covs, tx, tm, MAX_CORR)
+    with pytest.raises(ValueError, match="gicp prepared"):
+        gicp.Prepared(src, covs, tx[:5], tm, MAX_CORR)
+    with pytest.raises(ValueError, match="gicp prepared"):
+        gicp.Prepared(src, covs, tx, tm.float(), MAX_CORR)
+    with pytest.raises(ValueError, match="gicp prepared"):
+        gicp.Prepared(src, tgt.covs, tx, tm, MAX_CORR)  # a target on another device
+    with pytest.raises(ValueError, match="gicp prepared"):
+        gicp.Prepared(gicp.GicpCloud(src.xyz[None].expand(70000, -1, -1), src.mask[None].expand(70000, -1),
+                                     src.covs[None].expand(70000, -1, -1, -1)), covs, tx, tm, MAX_CORR)
+
+
+# -- the LM loop: each form once per pose and correspondence set ------------------------------
+# The loop as it was before the fused form (its _lm_init, _lm_step, lm_loop
+# and lm_loop_batched, kept here as the reference): an association, then a
+# linearization at the same pose; every step linearizes at its pose again,
+# the first one repeating _lm_init's; the ungated loop associates at the
+# guess twice.
+
+
+def _old_lm_init(associate_all, linearize_at, guess, lm_init_lambda_factor):
+    corr = associate_all(guess)
+    H0, _, cost0, n0 = linearize_at(guess, corr)
+    lam0 = lm_init_lambda_factor * torch.diagonal(H0, dim1=-2, dim2=-1).abs().amax(-1)
+    two = torch.full_like(lam0, 2.0)
+    s = base.LMState(T=guess, lam=lam0, nu=two, converged=torch.zeros_like(lam0, dtype=torch.bool),
+                     num_inliers=n0, error=cost0)
+    return s, corr, lam0
+
+
+def _old_lm_step(s, corr, linearize_at, cost_at, epsilon):
+    H, b, cost, ninl = linearize_at(s.T, corr)
+    A = H.clone()
+    A.diagonal(dim1=-2, dim2=-1).add_(s.lam[..., None])
+    d = -solve_spd(A, b)
+    delta = se3.se3_exp(d)
+    T_new = se3.compose(delta, s.T)
+    cost_new = cost_at(T_new, corr)
+    accept = (cost_new < cost) & torch.isfinite(cost_new)
+    denom = (d * (s.lam[..., None] * d - b)).sum(-1)
+    rho = (cost - cost_new) / torch.where(denom.abs() < 1e-30, 1e-30, denom)
+    lam_acc = s.lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    lam = torch.where(accept, lam_acc, s.lam * s.nu)
+    nu = torch.where(accept, 2.0, 2.0 * s.nu)
+    conv = base.se3_delta_converged(delta, epsilon)
+    s2 = base.LMState(T=torch.where(accept[..., None, None], T_new, s.T), lam=lam, nu=nu, converged=conv,
+                      num_inliers=ninl, error=torch.where(accept, cost_new, cost))
+    return s2, d, accept
+
+
+def _old_select_rows(cond, new, old):
+    return type(new)(*[torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - 1)), a, b) for a, b in zip(new, old)])
+
+
+def _old_put_rows(corr, rows, part):
+    return type(corr)(*[c.index_put((rows,), p) for c, p in zip(corr, part)])
+
+
+def old_lm_loop(associate, linearize_at, cost_at, guess, max_iterations, transformation_epsilon,
+                lm_init_lambda_factor=1e-9, reassoc_displacement=0.0, r_max: Optional[torch.Tensor] = None):
+    gated = bool(reassoc_displacement)
+    s, corr, lam0 = _old_lm_init(associate, linearize_at, guess, lm_init_lambda_factor)
+    it, converged = 0, False
+    if not gated:
+        while it < max_iterations and not converged:
+            s, _, _ = _old_lm_step(s, associate(s.T), linearize_at, cost_at, transformation_epsilon)
+            it += 1
+            converged = bool(s.converged)
+    else:
+        disp = torch.zeros_like(lam0)
+        while it < max_iterations and not converged:
+            s2, d, accept = _old_lm_step(s, corr, linearize_at, cost_at, transformation_epsilon)
+            it += 1
+            s, refresh, disp = base._lm_gate(s, s2, d, accept, disp, r_max, reassoc_displacement, lam0)
+            converged, do_refresh = torch.stack([s.converged, refresh]).tolist()
+            if do_refresh:
+                corr = associate(s.T)
+        if not converged:
+            s = s._replace(error=cost_at(s.T, associate(s.T)))
+    return base.AlignResult(transformation=s.T, converged=s.converged,
+                            iterations=torch.tensor(it, dtype=torch.int32, device=guess.device), error=s.error,
+                            num_inliers=s.num_inliers)
+
+
+def old_lm_loop_batched(associate, linearize_at, cost_at, guess, max_iterations, transformation_epsilon,
+                        lm_init_lambda_factor=1e-9, reassoc_displacement=0.0, r_max=None):
+    gated = bool(reassoc_displacement)
+    dev = guess.device
+    all_rows = torch.arange(guess.shape[0], device=dev)
+    s, corr, lam0 = _old_lm_init(lambda T: associate(T, all_rows), linearize_at, guess, lm_init_lambda_factor)
+    it = torch.zeros_like(lam0, dtype=torch.int32)
+    live = torch.ones_like(lam0, dtype=torch.bool)
+    disp = torch.zeros_like(lam0)
+    for _ in range(max_iterations):
+        s2, d, accept = _old_lm_step(s, corr, linearize_at, cost_at, transformation_epsilon)
+        if gated:
+            s2, refresh, disp_next = base._lm_gate(s, s2, d, accept, disp, r_max, reassoc_displacement, lam0)
+            disp = torch.where(live, disp_next, disp)
+            do_refresh = live & refresh
+        s = _old_select_rows(live, s2, s)
+        it = it + live.to(it.dtype)
+        live = ~s.converged & (it < max_iterations)
+        flags = torch.stack([live, do_refresh] if gated else [live, live]).cpu()
+        if not bool(flags[0].any()):
+            break
+        rows = torch.nonzero(flags[1])[:, 0].to(dev)
+        if rows.numel():
+            corr = _old_put_rows(corr, rows, associate(s.T[rows], rows))
+    if gated and not bool(s.converged.all()):
+        fresh = cost_at(s.T, associate(s.T, all_rows))
+        s = s._replace(error=torch.where(s.converged, s.error, fresh))
+    return base.AlignResult(transformation=s.T, converged=s.converged, iterations=it, error=s.error,
+                            num_inliers=s.num_inliers)
+
+
+def old_align(tgt, src, guess, max_corr_dist, epsilon, iterations, reassoc):
+    """gicp.align's arguments through the old loop and the plain twins."""
+    r_max = None
+    if reassoc:
+        r_max = torch.sqrt(torch.where(src.mask, (src.xyz * src.xyz).sum(-1), 0.0).amax(-1))
+    kw = dict(linearize_at=lambda T, c: gicp.linearize_plain(T, c, src, tgt.xyz),
+              cost_at=lambda T, c: gicp.cost_plain(T, c, src, tgt.xyz), guess=guess, max_iterations=iterations,
+              transformation_epsilon=epsilon, reassoc_displacement=reassoc, r_max=r_max)
+    if guess.ndim == 2:
+        return old_lm_loop(associate=lambda T: gicp._associate(T, src, tgt, max_corr_dist), **kw)
+
+    def associate_rows(T, rows):
+        part = gicp.GicpCloud(xyz=src.xyz[rows], mask=src.mask[rows], covs=src.covs[rows])
+        return gicp._associate(T, part, tgt, max_corr_dist)
+
+    return old_lm_loop_batched(associate=associate_rows, **kw)
+
+
+# guesses off the poses the sources were drawn at; epsilon small and few
+# iterations, so that trials are rejected, gated correspondences refresh,
+# and some problems stop at max_iterations (the honest error's path)
+LM_EPSILON, LM_ITERATIONS, LM_REASSOC = 1e-4, 6, 0.05
+
+
+def lm_problem(batched: bool):
+    tgt, srcs, poses = clouds()
+    rng = np.random.default_rng(11)
+    guesses = torch.from_numpy(np.stack([twist_pose(rng, 0.3) for _ in srcs])) @ poses
+    return (tgt, stack(srcs), guesses) if batched else (tgt, srcs[0], guesses[0])
+
+
+@pytest.mark.parametrize("reassoc", [0.0, LM_REASSOC], ids=["ungated", "gated"])
+@pytest.mark.parametrize("batched", [False, True])
+def test_lm_loop_gives_the_repeating_loops_result(batched, reassoc):
+    """gicp.align through the new lm_loop / lm_loop_batched (the fused form
+    at every association, the trial linearized in full when gated, the
+    first step reusing _lm_init's calls) gives the old loop's AlignResult
+    bit for bit on the plain twins, gated and ungated, one problem and a
+    batch of three."""
+    tgt, src, guess = lm_problem(batched)
+    new = gicp.align(tgt, src, guess, max_corr_dist=MAX_CORR, transformation_epsilon=LM_EPSILON,
+                     max_iterations=LM_ITERATIONS, reassoc_displacement=reassoc)
+    old = old_align(tgt, src, guess, MAX_CORR, LM_EPSILON, LM_ITERATIONS, reassoc)
+    assert same(new, old), (new, old)
+    assert int(new.iterations.max()) > 1
+
+
+def test_vgicp_batched_loop_gives_the_repeating_loops_result():
+    """vgicp.align (lm_loop_batched over the voxel target, the found gate)
+    against the old loop on the plain twins: bit for bit, ungated and
+    gated."""
+    tgt = vgicp_target()
+    _, srcs, poses = clouds()
+    src = stack(srcs)
+    for reassoc in (0.0, LM_REASSOC):
+        new = vgicp.align(tgt, src, poses, transformation_epsilon=LM_EPSILON, max_iterations=LM_ITERATIONS,
+                          reassoc_displacement=reassoc)
+        r_max = torch.sqrt(torch.where(src.mask, (src.xyz * src.xyz).sum(-1), 0.0).amax(-1)) if reassoc else None
+
+        def associate_rows(T, rows):
+            part = gicp.GicpCloud(xyz=src.xyz[rows], mask=src.mask[rows], covs=src.covs[rows])
+            return vgicp._associate(T, part, tgt)
+
+        old = old_lm_loop_batched(associate_rows, lambda T, c: gicp.linearize_plain(T, c, src, tgt.means),
+                                  lambda T, c: gicp.cost_plain(T, c, src, tgt.means), poses, LM_ITERATIONS,
+                                  LM_EPSILON, reassoc_displacement=reassoc, r_max=r_max)
+        assert same(new, old), (reassoc, new, old)
+
+
+class Counting:
+    """The plain twins behind counters: the loop's GICP calls by form, and
+    the poses each linearization ran at."""
+
+    def __init__(self, tgt, src):
+        self.tgt, self.src = tgt, src
+        self.calls = dict(associate=0, associate_linearize=0, linearize=0, cost=0)
+        self.linearized_at = []
+
+    def associate(self, T):
+        self.calls["associate"] += 1
+        return gicp._associate(T, self.src, self.tgt, MAX_CORR)
+
+    def associate_linearize(self, T):
+        self.calls["associate_linearize"] += 1
+        idx, d2 = gicp._correspond(T, self.src, self.tgt)
+        return gicp.associate_linearize_plain(T, self.src, self.tgt.covs, self.tgt.xyz, idx,
+                                              gicp.DistanceGate(d2, self.tgt.mask, MAX_CORR))
+
+    def linearize(self, T, corr):
+        self.calls["linearize"] += 1
+        self.linearized_at.append(T.clone())
+        return gicp.linearize_plain(T, corr, self.src, self.tgt.xyz)
+
+    def cost(self, T, corr):
+        self.calls["cost"] += 1
+        return gicp.cost_plain(T, corr, self.src, self.tgt.xyz)
+
+    def run(self, guess, reassoc, iterations):
+        r_max = torch.sqrt(torch.where(self.src.mask, (self.src.xyz ** 2).sum(-1), 0.0).amax(-1)) if reassoc else None
+        return base.lm_loop(self.associate, self.linearize, self.cost, guess, iterations, LM_EPSILON,
+                            reassoc_displacement=reassoc, r_max=r_max, associate_linearize=self.associate_linearize)
+
+
+@pytest.mark.parametrize("iterations", [3, 64])
+def test_lm_loop_calls_each_form_once_per_pose(iterations):
+    """Gated, an align makes 1 + refreshes fused calls and one
+    linearization a step, never at the guess (the first step takes
+    _lm_init's), and no cost-only call but the honest error's on a
+    max-iterations exit: at most 1 + iterations + refreshes GICP calls
+    (+ 2 on that exit). Ungated, one fused call a step (the first is
+    _lm_init's) and one cost-only trial."""
+    tgt, src, guess = lm_problem(False)
+    c = Counting(tgt, src)
+    out = c.run(guess, LM_REASSOC, iterations)
+    it, converged = int(out.iterations), bool(out.converged)
+    refreshes = c.calls["associate_linearize"] - 1
+    assert c.calls["linearize"] == it and all(not torch.equal(T, guess) for T in c.linearized_at)
+    assert c.calls["associate"] == c.calls["cost"] == (0 if converged else 1)
+    assert sum(c.calls.values()) <= 1 + it + refreshes + (0 if converged else 2)
+    assert (iterations == 3) != converged and refreshes >= 1
+    u = Counting(tgt, src)
+    out = u.run(guess, 0.0, iterations)
+    assert u.calls == dict(associate=0, associate_linearize=int(out.iterations), linearize=0,
+                           cost=int(out.iterations))
+
+
+class RingPrepared(gicp.Prepared):
+    """gicp.Prepared with its card path on the CPU: its rings of two output
+    slots and its select over the kernel's (B, 43) rows, each launch the
+    plain twin writing its outputs into the slot's tensors as the kernel
+    writes them. The forms launched are kept in ``launched``."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.cpu = False
+        self.launched = []
+
+    def _launch(self, form, T, idx, flags, Mw, num, out, name):
+        self.launched.append(form)
+        if form in (gicp.ASSOCIATE, gicp.FUSED):
+            corr = gicp.associate_plain(T, self.src, self.tgt_covs, idx, self._plain_gate(flags))
+            Mw.copy_(corr.Mw.reshape(Mw.shape))
+            num.copy_(corr.num.reshape(num.shape))
+        corr = gicp.GicpCorr(idx, Mw.reshape(idx.shape + (3, 3)), None)
+        if form in (gicp.FUSED, gicp.LINEARIZE):
+            H, b, c, _ = gicp.linearize_plain(T, corr, self.src, self.tgt_xyz)
+            out.copy_(torch.cat([b.reshape(-1, 6), H.reshape(-1, 36), c.reshape(-1, 1)], 1))
+        elif form == gicp.COST:
+            out.copy_(gicp.cost_plain(T, corr, self.src, self.tgt_xyz).reshape(-1))
+
+
+@pytest.mark.parametrize("case", ["gated", "ungated", "batched_gated", "batched_ungated", "vgicp_gated",
+                                  "refresh_then_max_iterations"])
+def test_prepared_rings_keep_the_loops_results(monkeypatch, case):
+    """gicp.align and vgicp.align launching through Prepared's rings (the
+    card's output slots, reused every second call of a kind) give the plain
+    loop's AlignResult bit for bit: no result the loop still holds is
+    overwritten. The last case exits at max_iterations right after a
+    refresh, so the honest error's association runs while the state's
+    inlier count is the last step's, a count that association changes."""
+    tgt, src, guess = lm_problem(case.startswith("batched") or case.startswith("vgicp"))
+    reassoc = 0.0 if case.endswith("ungated") else LM_REASSOC
+    iterations = LM_ITERATIONS
+    if case == "refresh_then_max_iterations":
+        reassoc, iterations = 1e-6, 2  # every accepted step refreshes
+    preps = []
+
+    def make(*args, **kw):
+        preps.append(RingPrepared(*args, **kw))
+        return preps[-1]
+
+    def run():
+        if case.startswith("vgicp"):
+            return vgicp.align(vgicp_target(), src, guess, transformation_epsilon=LM_EPSILON,
+                               max_iterations=iterations, reassoc_displacement=reassoc)
+        return gicp.align(tgt, src, guess, max_corr_dist=MAX_CORR, transformation_epsilon=LM_EPSILON,
+                          max_iterations=iterations, reassoc_displacement=reassoc)
+
+    plain = run()
+    monkeypatch.setattr(gicp, "Prepared", make)
+    ringed = run()
+    assert len(preps) == 1 and preps[0].launched
+    assert same(ringed, plain), (ringed, plain)
+    if case == "refresh_then_max_iterations":
+        assert not bool(plain.converged) and int(plain.iterations) == iterations
+        assert preps[0].launched[-3:] == [gicp.FUSED, gicp.ASSOCIATE, gicp.COST]
+        honest = gicp._associate(plain.transformation, src, tgt, MAX_CORR)
+        assert int(honest.num) != int(plain.num_inliers)
