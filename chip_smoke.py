@@ -1015,16 +1015,15 @@ def count_host_syncs(fn) -> tuple:
 
 
 class StageClock:
-    """Host wall time of wrapped methods (the script's instrumentation: the
-    package has none), kept in a utils.metrics.StageTimer. A wrapper marks
-    its span for the profiler, optionally synchronises the card at its end,
-    and optionally counts the host syncs made inside it (torch.cuda sync
-    debug mode)."""
+    """Host wall time of wrapped methods (the script's instrumentation, apart
+    from the program's own tracer, which stays off): totals and calls a key.
+    A wrapper marks its span for the profiler, optionally synchronises the
+    card at its end, and optionally counts the host syncs made inside it
+    (torch.cuda sync debug mode)."""
 
     def __init__(self):
-        from hdl_graph_slam_tpu_torch.utils.metrics import StageTimer
-
-        self.timer = StageTimer()
+        self.totals = defaultdict(float)  # key -> seconds
+        self.counts = defaultdict(int)  # key -> calls
         self.syncs = []
         self.results = defaultdict(list)  # key -> return values kept by keep_result wrappers
         self._undo = []
@@ -1037,7 +1036,8 @@ class StageClock:
         clock = self
 
         def wrapper(*args, **kwargs):
-            with torch.profiler.record_function(f"slam/{key}"), clock.timer.span(key):
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(f"slam/{key}"):
                 if count_syncs:
                     out, syncs = count_host_syncs(lambda: orig(*args, **kwargs))
                     clock.syncs.append(syncs)
@@ -1047,6 +1047,8 @@ class StageClock:
                     torch.cuda.synchronize()
                 if keep_result:
                     clock.results[key].append(out)
+            clock.totals[key] += time.perf_counter() - t0
+            clock.counts[key] += 1
             return out
 
         setattr(owner, attr, wrapper)
@@ -1366,6 +1368,7 @@ def check_radius(knn, q, t, r: float, rows, what: str, exact_ties: bool = False)
                own_boxes_identical=bool(torch.equal(own["counts"], c_k)) and (own["full"], own["point"]) == (
                    tiles["full"], tiles["point"]),
                tile_pairs=tiles["tile_pairs"], tiles_full=tiles["full"], tiles_point=tiles["point"],
+               wait_expired=tiles["wait_expired"],
                tiles_planned=planned, tested_share=(tiles["full"] + tiles["point"]) / tiles["tile_pairs"],
                full_share=tiles["full"] / tiles["tile_pairs"])
     require(row["rows_off_float64"] == 0, f"radius_count {what}: {row['rows_off_float64']} rows off the float64 count")
@@ -1754,7 +1757,6 @@ def slam_phase(knn, golden, phase: str = "slam", cfg=None, per_frame: bool = Fal
     n_floor = len(pipe.slam.graph.edge_rows["se3_plane"])
     stats = pipe.slam.last_stats
     graph_iterations = sum(int(st.iterations) for _, st in clock.results["graph_solve"])
-    timer = clock.timer
     row = dict(
         phase=phase, mode="run (per frame)" if per_frame else "run_windowed", frames=result.num_frames,
         keyframes=n_kf, loop_edges=n_loops, floor_edges=n_floor,
@@ -1762,13 +1764,13 @@ def slam_phase(knn, golden, phase: str = "slam", cfg=None, per_frame: bool = Fal
         det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
         orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
         seconds=wall, fps=result.num_frames / wall,
-        host_wall_s=dict(timer.totals), calls=dict(timer.counts),
-        host_ms_per_call={k: 1e3 * timer.totals[k] / timer.counts[k] for k in timer.counts if timer.counts[k]},
+        host_wall_s=dict(clock.totals), calls=dict(clock.counts),
+        host_ms_per_call={k: 1e3 * clock.totals[k] / clock.counts[k] for k in clock.counts if clock.counts[k]},
         host_syncs_per_optimize_cycle=dict(mean=float(np.mean(clock.syncs)), max=int(max(clock.syncs)),
                                            total=int(sum(clock.syncs)), cycles=len(clock.syncs)),
         last_solve_iterations=int(stats.iterations) if stats is not None else None,
         graph_iterations=graph_iterations,
-        graph_ms_per_iteration=1e3 * timer.totals["graph_solve"] / max(graph_iterations, 1),
+        graph_ms_per_iteration=1e3 * clock.totals["graph_solve"] / max(graph_iterations, 1),
         launches=launches, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
     if cfg.floor.enabled:
@@ -2678,7 +2680,6 @@ def imu_phase(knn, golden) -> dict:
     ref = [(float(i), T) for i, T in enumerate(truth)]
     kf = {s for s, _ in est}
     Rs = np.stack([T[:3, :3] for _, T in odom])
-    timer = clock.timer
     row = dict(
         phase="imu", preset="imu", frames=len(odom), cloud_capacity=IMU_CLOUD_CAPACITY, keyframes=len(est),
         ate_opt_m=traj_io.ate_rmse(est, ref, align=True),
@@ -2687,7 +2688,7 @@ def imu_phase(knn, golden) -> dict:
                        slack_m=IMU_ATE_SLACK_M),
         det_err=float(np.abs(np.linalg.det(Rs) - 1.0).max()),
         orth_err=float(np.abs(Rs @ np.swapaxes(Rs, 1, 2) - np.eye(3)).max()),
-        seconds=wall, fps=len(odom) / wall, host_wall_s=dict(timer.totals), calls=dict(timer.counts),
+        seconds=wall, fps=len(odom) / wall, host_wall_s=dict(clock.totals), calls=dict(clock.counts),
         launches=launches,
     )
     emit(row)

@@ -21,6 +21,7 @@ import torch
 from ..core.cloud import PointCloud
 from ..core.config import InformationMatrixConfig
 from ..ops import knn
+from ..utils.metrics import GLOBAL_TIMER
 
 
 class InformationMatrixCalculator:
@@ -30,10 +31,17 @@ class InformationMatrixCalculator:
     @staticmethod
     def calc_fitness_score(cloud1: PointCloud, cloud2: PointCloud, relpose: np.ndarray,
                            max_range: float = np.inf) -> float:
+        GLOBAL_TIMER.count_copies("information_relpose", cloud2.xyz.device)
         rel = torch.as_tensor(np.asarray(relpose), dtype=cloud2.xyz.dtype).to(cloud2.xyz.device)
-        return float(knn.fitness_score(cloud1.valid_xyz(), cloud2.xyz, cloud2.mask, rel, max_range=max_range))
+        score = knn.fitness_score(cloud1.valid_xyz(), cloud2.xyz, cloud2.mask, rel, max_range=max_range)
+        GLOBAL_TIMER.count("host_sync.information_fitness")
+        return float(score)
 
     def calc_information_matrix(self, cloud1: PointCloud, cloud2: PointCloud, relpose: np.ndarray) -> np.ndarray:
+        with GLOBAL_TIMER.span("information"):
+            return self._information(cloud1, cloud2, relpose)
+
+    def _information(self, cloud1: PointCloud, cloud2: PointCloud, relpose: np.ndarray) -> np.ndarray:
         if self.cfg.use_const_inf_matrix:
             return self.information_from_fitness(0.0)
         return self.information_from_fitness(self.calc_fitness_score(cloud1, cloud2, relpose))
@@ -59,19 +67,22 @@ class InformationMatrixCalculator:
         mixed capacities take the per-pair path, as in the JAX package."""
         if not pairs:
             return []
-        c = self.cfg
-        if c.use_const_inf_matrix or len(pairs) == 1:
-            return [self.calc_information_matrix(c1, c2, rp) for (c1, c2, rp) in pairs]
-        caps1 = {c1.capacity for (c1, _, _) in pairs}
-        caps2 = {c2.capacity for (_, c2, _) in pairs}
-        if len(caps1) != 1 or len(caps2) != 1:
-            return [self.calc_information_matrix(c1, c2, rp) for (c1, c2, rp) in pairs]
-        tgt = torch.stack([c1.valid_xyz() for (c1, _, _) in pairs])
-        src = torch.stack([c2.xyz for (_, c2, _) in pairs])
-        msk = torch.stack([c2.mask for (_, c2, _) in pairs])
-        rel = torch.from_numpy(np.stack([np.asarray(rp) for (_, _, rp) in pairs])).to(src.device, src.dtype)
-        scores = knn.fitness_score(tgt, src, msk, rel).cpu().numpy()
-        return [self.information_from_fitness(float(s)) for s in scores]
+        with GLOBAL_TIMER.span("information"):
+            c = self.cfg
+            if c.use_const_inf_matrix or len(pairs) == 1:
+                return [self._information(c1, c2, rp) for (c1, c2, rp) in pairs]
+            caps1 = {c1.capacity for (c1, _, _) in pairs}
+            caps2 = {c2.capacity for (_, c2, _) in pairs}
+            if len(caps1) != 1 or len(caps2) != 1:
+                return [self._information(c1, c2, rp) for (c1, c2, rp) in pairs]
+            tgt = torch.stack([c1.valid_xyz() for (c1, _, _) in pairs])
+            src = torch.stack([c2.xyz for (_, c2, _) in pairs])
+            msk = torch.stack([c2.mask for (_, c2, _) in pairs])
+            GLOBAL_TIMER.count_copies("information_relpose", src.device)
+            rel = torch.from_numpy(np.stack([np.asarray(rp) for (_, _, rp) in pairs])).to(src.device, src.dtype)
+            GLOBAL_TIMER.count("host_sync.information_batched")
+            scores = knn.fitness_score(tgt, src, msk, rel).cpu().numpy()
+            return [self.information_from_fitness(float(s)) for s in scores]
 
     @staticmethod
     def _weight(a, max_x, min_y, max_y, x) -> float:

@@ -33,6 +33,7 @@ from ..core.config import LoopDetectorConfig
 from ..ops import knn
 from ..registration import factory
 from ..registration.factory import Registration
+from ..utils.metrics import GLOBAL_TIMER
 from .keyframe import KeyFrame
 
 
@@ -85,8 +86,13 @@ class LoopDetector:
         """estimates: (num_nodes, 4, 4) current optimized pose estimates."""
         loops = []
         for nk in new_keyframes:
-            cand_idx = self.find_candidates(keyframes, nk, estimates)
-            loop = self._match(keyframes, cand_idx, nk, estimates)
+            with GLOBAL_TIMER.span("loop_candidates"):
+                cand_idx = self.find_candidates(keyframes, nk, estimates)
+            GLOBAL_TIMER.count("loop_candidates", len(cand_idx))
+            if not cand_idx:
+                continue
+            with GLOBAL_TIMER.span("loop_match"):
+                loop = self._match(keyframes, cand_idx, nk, estimates)
             if loop is not None:
                 loops.append(loop)
         return loops
@@ -107,6 +113,9 @@ class LoopDetector:
         match = self._match_sequential if self.force_sequential else self._match_batched
         scores, transforms, convergeds = match([keyframes[i].cloud for i in cand_idx], new_keyframe.cloud, guesses)
 
+        if GLOBAL_TIMER.on:
+            GLOBAL_TIMER.count("loops_matched", sum(1 for j in range(len(cand_idx))
+                                                    if convergeds[j] and scores[j] <= cfg.fitness_score_thresh))
         best_score = np.inf
         best: Optional[int] = None
         for j in range(len(cand_idx)):
@@ -135,6 +144,7 @@ class LoopDetector:
         for src, guess in zip(sources, guesses):
             res = reg.align(src, guess=guess)
             scores.append(reg.get_fitness_score(self.cfg.fitness_score_max_range))
+            GLOBAL_TIMER.count("host_sync.loop_match_sequential", 2)  # the pose and the flag
             transforms.append(res.transformation.cpu().numpy())
             convs.append(bool(res.converged))
         return scores, transforms, convs
@@ -160,11 +170,13 @@ class LoopDetector:
         for j, s in enumerate(sources):
             xyz[j, : s.capacity] = s.xyz
             mask[j, : s.capacity] = s.mask
+        GLOBAL_TIMER.count_copies("loop_guesses", dev)
         guesses_t = torch.from_numpy(np.stack(guesses)).to(dev, xyz.dtype)
 
         transforms, convs, scores = batched_match(c, tgt_state, target.valid_xyz(), xyz, mask, guesses_t,
                                                   fitness_max_range=self.cfg.fitness_score_max_range)
         # ONE host copy for the whole candidate batch
+        GLOBAL_TIMER.count("host_sync.loop_match")
         out = torch.cat([transforms.reshape(len(sources), -1), convs[:, None].to(transforms.dtype),
                          scores[:, None].to(transforms.dtype)], dim=1).cpu().numpy()
         transforms = out[:, :16].reshape(-1, 4, 4)

@@ -36,6 +36,7 @@ from ..graph import GraphBuilder, optimize as graph_optimize
 from ..io import geodesy
 from ..parallel import distributed_optimize, hierarchical_optimize, make_mesh
 from ..parallel.multihost import distributed_optimize_multihost
+from ..utils.metrics import GLOBAL_TIMER
 from .information_matrix import InformationMatrixCalculator
 from .keyframe import KeyFrame, KeyFrameSnapshot, KeyframeUpdater
 from .loop_detector import LoopDetector
@@ -98,6 +99,7 @@ class HdlGraphSlam:
         self.floor_plane_node_id: Optional[int] = None
         self.snapshots: List[KeyFrameSnapshot] = []
         self.last_stats = None
+        self.cycles = 0  # optimize cycles run: the next cycle's index
 
     # -- ingestion -----------------------------------------------------------
 
@@ -160,6 +162,7 @@ class HdlGraphSlam:
         b = self.cfg.backend
         odom2map = self.trans_odom2map
         num = min(len(self.keyframe_queue), b.max_keyframes_per_update)
+        GLOBAL_TIMER.count("keyframes_admitted", num)
         pending = []  # (kf, prev, relative_pose) odometry edges of this flush
         for i in range(num):
             kf = self.keyframe_queue[i]
@@ -327,7 +330,9 @@ class HdlGraphSlam:
         """optimization_timer_callback (:546-612). Returns True if the
         estimates were updated. Thread-safe vs the ingestion methods."""
         with self.main_lock:
-            return self._optimize_cycle_locked()
+            cycle, self.cycles = self.cycles, self.cycles + 1
+            with GLOBAL_TIMER.span("optimize_cycle", rid=cycle):
+                return self._optimize_cycle_locked()
 
     def flush(self) -> bool:
         """End-of-stream flush: drain every queue and optimize until nothing
@@ -351,31 +356,35 @@ class HdlGraphSlam:
 
     def _optimize_cycle_locked(self) -> bool:
         b = self.cfg.backend
-        keyframe_updated = self._flush_keyframe_queue()
-        flushed = self._flush_floor_queue() | self._flush_gps_queue() | self._flush_imu_queue()
+        with GLOBAL_TIMER.span("flush_queues"):
+            keyframe_updated = self._flush_keyframe_queue()
+            flushed = self._flush_floor_queue() | self._flush_gps_queue() | self._flush_imu_queue()
         if not keyframe_updated and not flushed:
             # reference also short-circuits when nothing new (:561-564)
             if not self.new_keyframes:
                 return False
 
-        estimates = self._current_estimates()
-        loops = self.loop_detector.detect(self.keyframes, self.new_keyframes, estimates)
-        for loop in loops:
-            relpose = loop.relative_pose
-            if np.isfinite(loop.fitness) and self.cfg.loop.fitness_score_max_range == float("inf"):
-                # the batched matcher already computed this fitness (same
-                # clouds, same pose, max_range=inf)
-                information = self.inf_calculator.information_from_fitness(loop.fitness)
-            else:
-                information = self.inf_calculator.calc_information_matrix(loop.key1.cloud, loop.key2.cloud, relpose)
-            self.graph.add_se3_edge(
-                loop.key1.node_id,
-                loop.key2.node_id,
-                relpose,
-                information,
-                kernel=b.loop_closure_edge_robust_kernel,
-                kernel_delta=b.loop_closure_edge_robust_kernel_size,
-            )
+        with GLOBAL_TIMER.span("loop_detect"):
+            estimates = self._current_estimates()
+            loops = self.loop_detector.detect(self.keyframes, self.new_keyframes, estimates)
+            GLOBAL_TIMER.count("loops_added", len(loops))
+            for loop in loops:
+                relpose = loop.relative_pose
+                if np.isfinite(loop.fitness) and self.cfg.loop.fitness_score_max_range == float("inf"):
+                    # the batched matcher already computed this fitness (same
+                    # clouds, same pose, max_range=inf)
+                    information = self.inf_calculator.information_from_fitness(loop.fitness)
+                else:
+                    information = self.inf_calculator.calc_information_matrix(loop.key1.cloud, loop.key2.cloud,
+                                                                               relpose)
+                self.graph.add_se3_edge(
+                    loop.key1.node_id,
+                    loop.key2.node_id,
+                    relpose,
+                    information,
+                    kernel=b.loop_closure_edge_robust_kernel,
+                    kernel_delta=b.loop_closure_edge_robust_kernel_size,
+                )
 
         self.keyframes.extend(self.new_keyframes)
         self.new_keyframes = []
@@ -393,19 +402,23 @@ class HdlGraphSlam:
                 # base graph solved globally (parallel/partition.py); both
                 # boundary phases per cycle (its rounds alternate the block
                 # offsets so boundary poses see their priors)
-                hierarchical_optimize(self.graph, block_size=b.submap_block_size, intra_iterations=iters,
-                                      inter_iterations=iters, rounds=2, device=self.device)
+                with GLOBAL_TIMER.span("graph_optimize"):
+                    hierarchical_optimize(self.graph, block_size=b.submap_block_size, intra_iterations=iters,
+                                          inter_iterations=iters, rounds=2, device=self.device)
             else:
-                data = self.graph.freeze(dtype=torch.float64, device=self.device)
-                if b.distributed and tdist.is_initialized() and tdist.get_world_size() > 1:
-                    data, stats = distributed_optimize_multihost(data, max_iterations=iters)
-                elif b.distributed:
-                    if self._mesh is None:
-                        self._mesh = make_mesh(device=self.device)
-                    data, stats = distributed_optimize(self._mesh, data, max_iterations=iters)
-                else:
-                    data, stats = graph_optimize(data, max_iterations=iters)
-                self.graph.update_estimates(data)
+                with GLOBAL_TIMER.span("graph_freeze"):
+                    data = self.graph.freeze(dtype=torch.float64, device=self.device)
+                with GLOBAL_TIMER.span("graph_optimize"):
+                    if b.distributed and tdist.is_initialized() and tdist.get_world_size() > 1:
+                        data, stats = distributed_optimize_multihost(data, max_iterations=iters)
+                    elif b.distributed:
+                        if self._mesh is None:
+                            self._mesh = make_mesh(device=self.device)
+                        data, stats = distributed_optimize(self._mesh, data, max_iterations=iters)
+                    else:
+                        data, stats = graph_optimize(data, max_iterations=iters)
+                with GLOBAL_TIMER.span("update_estimates"):
+                    self.graph.update_estimates(data)
                 self.last_stats = stats
 
         if self.keyframes:
@@ -413,9 +426,10 @@ class HdlGraphSlam:
             est = self.graph.poses[last.node_id]
             self.trans_odom2map = est @ np.linalg.inv(last.odom)
 
-        self.snapshots = [
-            KeyFrameSnapshot(pose=self.graph.poses[kf.node_id], cloud=kf.cloud) for kf in self.keyframes
-        ]
+        with GLOBAL_TIMER.span("snapshots"):
+            self.snapshots = [
+                KeyFrameSnapshot(pose=self.graph.poses[kf.node_id], cloud=kf.cloud) for kf in self.keyframes
+            ]
         return True
 
     def _current_estimates(self) -> np.ndarray:

@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.metrics import GLOBAL_TIMER
 from .device import resolve_device
 
 # Padding points live far outside any plausible LiDAR return so that
@@ -46,6 +47,7 @@ class PointCloud:
 
     def to_numpy(self) -> np.ndarray:
         """The valid points as a dense (count, 3) numpy array."""
+        GLOBAL_TIMER.count("host_sync.cloud_to_numpy")
         return self.xyz[self.mask].cpu().numpy()
 
 
@@ -87,6 +89,7 @@ def from_numpy(
         inten = np.zeros((cap,), dtype=dtype)
         inten[:n] = np.asarray(intensity, dtype=dtype).reshape(-1)[:n]
         inten = torch.from_numpy(inten).to(dev)
+    GLOBAL_TIMER.count_copies("cloud_from_numpy", dev, 2 if inten is None else 3)
     return PointCloud(xyz=torch.from_numpy(xyz).to(dev), mask=torch.from_numpy(mask).to(dev), intensity=inten)
 
 

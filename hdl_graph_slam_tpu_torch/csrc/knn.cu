@@ -600,7 +600,9 @@ knn_select_kernel(const float* __restrict__ q, int n, const float* __restrict__ 
 //   before, and integer counts do not depend on which warp adds them, so the
 //   counts are the earlier kernel's bit for bit.
 // With a stats pointer the kernel also counts the tile pairs it tested in
-// full and against one point (ops/knn.py radius_count_tiles).
+// full and against one point (ops/knn.py radius_count_tiles), and the lanes
+// whose wait for a tile's stamp ran out, so that they computed the tile's
+// boxes themselves (the program's tracer reads it).
 
 constexpr int kRcThreads = 256;            // radius_count: threads per block
 constexpr int kRcWarps = kRcThreads / 32;
@@ -736,9 +738,10 @@ __device__ __noinline__ TileBoxes lane_boxes(const float* __restrict__ t, int m,
 // write the table, then computes the boxes itself (lane_boxes): no wait is
 // unbounded, so no block depends on another being resident. With `own` it
 // computes them itself at once.
+// `expired` counts the waits that ran out.
 __device__ __forceinline__ TileBoxes load_boxes(const float* __restrict__ boxes, const unsigned* __restrict__ stamps,
                                                 int stride, int j, unsigned stamp, const float* __restrict__ t,
-                                                int m, bool own) {
+                                                int m, bool own, int& expired) {
   if (own) return lane_boxes(t, m, j);
   bool ready = ld_acquire(stamps + j) == stamp;
   if (!ready) {
@@ -747,7 +750,10 @@ __device__ __forceinline__ TileBoxes load_boxes(const float* __restrict__ boxes,
       __nanosleep(100);
       ready = ld_acquire(stamps + j) == stamp;
     } while (!ready && clock64() - t0 < kRcWaitCycles);
-    if (!ready) return lane_boxes(t, m, j);
+    if (!ready) {
+      ++expired;
+      return lane_boxes(t, m, j);
+    }
   }
   const float* p = boxes + j;
   TileBoxes b;
@@ -812,7 +818,7 @@ radius_count_kernel(const float* __restrict__ q, int n, const float* __restrict_
   }
 
   // phase 2: the query tiles
-  int nfull = 0, npoint = 0;
+  int nfull = 0, npoint = 0, nexpired = 0;
   for (int qt = blockIdx.x; qt < qtiles; qt += gridDim.x) {
     const int qi = qt * kRcTile + lane;
     const bool qin = qi < n;
@@ -828,7 +834,7 @@ radius_count_kernel(const float* __restrict__ q, int n, const float* __restrict_
       float px = 0.0f, py = 0.0f, pz = 0.0f;
       int pn = 0;
       if (j < ttiles) {
-        const TileBoxes tb = load_boxes(boxes, stamps, ttiles, j, stamp, t, m, own != 0);
+        const TileBoxes tb = load_boxes(boxes, stamps, ttiles, j, stamp, t, m, own != 0, nexpired);
         const bool to_valid = reach(qb.v, tb.v, r2) || reach(qb.o, tb.v, r2);
         const bool to_other = reach(qb.v, tb.o, r2) || reach(qb.o, tb.o, r2);
         full = to_valid || (to_other && !one_point(tb.o));
@@ -896,9 +902,13 @@ radius_count_kernel(const float* __restrict__ q, int n, const float* __restrict_
       out[qi] = total;
     }
   }
-  if (stats != nullptr && lane == 0) {
-    atomicAdd(stats, nfull);
-    atomicAdd(stats + 1, npoint);
+  if (stats != nullptr) {
+    const int expired = __reduce_add_sync(kFull, nexpired);
+    if (lane == 0) {
+      atomicAdd(stats, nfull);
+      atomicAdd(stats + 1, npoint);
+      atomicAdd(stats + 2, expired);
+    }
   }
 }
 
@@ -1081,8 +1091,8 @@ int hgs_knn_select_batched(const float* q, int batch, int n, const float* t, int
 // stamp; stamp is this launch's, above every stamp in stamps (each launch
 // leaves its stamp on every tile). own != 0 has every lane compute its
 // tiles' boxes from their rows (the fallback path, for checks). stats is
-// null, or two int32 that get the tile pairs tested in full and against one
-// point added.
+// null, or three int32 that get the tile pairs tested in full and against
+// one point and the lanes whose stamp wait ran out added.
 int hgs_radius_count(const float* q, int n, const float* t, int m, float r2, float* boxes, unsigned* stamps,
                      unsigned stamp, int own, int* stats, int* out, void* stream) {
   if (n <= 0 || m <= 0 || stamp == 0) return (int)cudaErrorInvalidValue;

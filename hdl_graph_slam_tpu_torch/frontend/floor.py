@@ -18,6 +18,7 @@ from ..core.cloud import PointCloud
 from ..core.config import FloorDetectionConfig
 from ..core.device import resolve_device
 from ..ops import filters, normals, ransac
+from ..utils.metrics import GLOBAL_TIMER
 
 
 class FloorDetector:
@@ -41,6 +42,7 @@ class FloorDetector:
         dtype = cloud.xyz.dtype
 
         def tensor(x):
+            GLOBAL_TIMER.count_copies("floor_constants", self.device)
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
         c = cloudlib.transform(cloud, tensor(self.tilt_matrix))
@@ -53,6 +55,7 @@ class FloorDetector:
 
     def _normal_filter(self, cloud: PointCloud) -> PointCloud:
         cfg = self.cfg
+        GLOBAL_TIMER.count_copies("floor_constants", self.device)
         viewpoint = torch.tensor([0.0, 0.0, cfg.sensor_height], dtype=cloud.xyz.dtype, device=self.device)
         n = normals.estimate_normals(cloud, k=10, viewpoint=viewpoint)
         keep = n[:, 2].abs() > float(np.cos(np.deg2rad(cfg.normal_filter_thresh)))
@@ -64,21 +67,24 @@ class FloorDetector:
         """Floor coefficients (4,) float64 with n.p + d = 0 and an upward
         normal, or None when no floor passes the gates. Two host copies: the
         clipped point count, then the inlier count with the coefficients."""
-        cfg = self.cfg
-        cloud = PointCloud(xyz=cloud.xyz.to(self.device), mask=cloud.mask.to(self.device))
-        c = self._prefilter(cloud)
-        count = int(c.count)
-        if count < cfg.floor_pts_thresh:
-            return None
-        # the valid points occupy rows [0, count) of the compacted cloud
-        tri = ransac.sample_triplets(self._generator, cfg.ransac_hypotheses, c.capacity, count)
-        res = ransac.fit_plane_from_triplets(c, tri, cfg.ransac_distance_thresh)
-        out = torch.cat([res.num_inliers.to(torch.float64)[None], res.coeffs.to(torch.float64)]).cpu().numpy()
-        if out[0] < cfg.floor_pts_thresh:
-            return None
-        coeffs = out[1:]
-        # verticality gate against the tilt-compensated vertical
-        reference = np.linalg.inv(self.tilt_matrix) @ np.array([0.0, 0.0, 1.0, 0.0])
-        if abs(float(coeffs[:3] @ reference[:3])) < np.cos(np.deg2rad(cfg.floor_normal_thresh)):
-            return None
-        return -coeffs if coeffs[2] < 0.0 else coeffs
+        with GLOBAL_TIMER.span("floor"):
+            cfg = self.cfg
+            cloud = PointCloud(xyz=cloud.xyz.to(self.device), mask=cloud.mask.to(self.device))
+            c = self._prefilter(cloud)
+            GLOBAL_TIMER.count("host_sync.floor_count")
+            count = int(c.count)
+            if count < cfg.floor_pts_thresh:
+                return None
+            # the valid points occupy rows [0, count) of the compacted cloud
+            tri = ransac.sample_triplets(self._generator, cfg.ransac_hypotheses, c.capacity, count)
+            res = ransac.fit_plane_from_triplets(c, tri, cfg.ransac_distance_thresh)
+            GLOBAL_TIMER.count("host_sync.floor_plane")
+            out = torch.cat([res.num_inliers.to(torch.float64)[None], res.coeffs.to(torch.float64)]).cpu().numpy()
+            if out[0] < cfg.floor_pts_thresh:
+                return None
+            coeffs = out[1:]
+            # verticality gate against the tilt-compensated vertical
+            reference = np.linalg.inv(self.tilt_matrix) @ np.array([0.0, 0.0, 1.0, 0.0])
+            if abs(float(coeffs[:3] @ reference[:3])) < np.cos(np.deg2rad(cfg.floor_normal_thresh)):
+                return None
+            return -coeffs if coeffs[2] < 0.0 else coeffs

@@ -28,6 +28,7 @@ from ..core.config import OdometryConfig
 from ..core.device import resolve_device
 from ..ops import voxel
 from ..registration.factory import Registration
+from ..utils.metrics import GLOBAL_TIMER
 
 
 class OdometryStatus(NamedTuple):
@@ -74,60 +75,63 @@ class ScanMatchingOdometry:
         """Process one frame; returns the odometry pose (4x4 float64 numpy).
         ``msf_source`` labels the init-guess provider in the status ("imu"
         or "odometry", scan_matching_odometry_nodelet.cpp:185,203)."""
-        cfg = self.cfg
-        cloud = PointCloud(xyz=cloud.xyz.to(self.device), mask=cloud.mask.to(self.device))
-        if self.keyframe is None:
-            self.prev_time = 0.0
-            self.prev_trans = np.eye(4)
-            self.keyframe_pose = np.eye(4)
-            self.keyframe_stamp = stamp
-            self.keyframe = self._downsample(cloud)
-            self.registration.set_target(self.keyframe)
-            return np.eye(4)
+        with GLOBAL_TIMER.span("odometry_step"):
+            cfg = self.cfg
+            cloud = PointCloud(xyz=cloud.xyz.to(self.device), mask=cloud.mask.to(self.device))
+            if self.keyframe is None:
+                self.prev_time = 0.0
+                self.prev_trans = np.eye(4)
+                self.keyframe_pose = np.eye(4)
+                self.keyframe_stamp = stamp
+                self.keyframe = self._downsample(cloud)
+                self.registration.set_target(self.keyframe)
+                return np.eye(4)
 
-        filtered = self._downsample(cloud)
-        guess = self.prev_trans @ (msf_delta if msf_delta is not None else np.eye(4))
-        result = self.registration.align(filtered, guess=torch.as_tensor(guess, dtype=filtered.xyz.dtype))
-        # one copy: the transformation, the flag, the error, the inliers and
-        # the keyframe's point count
-        scalars = (result.converged, result.error, result.num_inliers, self.keyframe.count)
-        host = torch.cat([result.transformation.reshape(-1).to(torch.float64),
-                          torch.stack([x.to(torch.float64) for x in scalars])]).cpu().numpy()
-        trans = host[:16].reshape(4, 4)
-        converged = bool(host[16])
-        self._publish_status(trans, converged, float(host[17]), int(host[18]), int(host[19]), msf_delta, msf_source)
+            filtered = self._downsample(cloud)
+            guess = self.prev_trans @ (msf_delta if msf_delta is not None else np.eye(4))
+            result = self.registration.align(filtered, guess=torch.as_tensor(guess, dtype=filtered.xyz.dtype))
+            # one copy: the transformation, the flag, the error, the inliers and
+            # the keyframe's point count
+            scalars = (result.converged, result.error, result.num_inliers, self.keyframe.count)
+            GLOBAL_TIMER.count("host_sync.odometry_result")
+            host = torch.cat([result.transformation.reshape(-1).to(torch.float64),
+                              torch.stack([x.to(torch.float64) for x in scalars])]).cpu().numpy()
+            trans = host[:16].reshape(4, 4)
+            converged = bool(host[16])
+            self._publish_status(trans, converged, float(host[17]), int(host[18]), int(host[19]), msf_delta, msf_source)
 
-        if not converged:
-            return self.keyframe_pose @ self.prev_trans
-
-        odom = self.keyframe_pose @ trans
-
-        if cfg.transform_thresholding:
-            delta = np.linalg.inv(self.prev_trans) @ trans
-            dx = np.linalg.norm(delta[:3, 3])
-            da = float(np.arccos(np.clip(_quat_w(delta[:3, :3]), -1.0, 1.0)))
-            if dx > cfg.max_acceptable_trans or da > cfg.max_acceptable_angle:
+            if not converged:
                 return self.keyframe_pose @ self.prev_trans
 
-        self.prev_time = stamp
-        self.prev_trans = trans
+            odom = self.keyframe_pose @ trans
 
-        delta_trans = float(np.linalg.norm(trans[:3, 3]))
-        delta_angle = float(np.arccos(np.clip(_quat_w(trans[:3, :3]), -1.0, 1.0)))
-        delta_time = stamp - self.keyframe_stamp
-        if (
-            delta_trans > cfg.keyframe_delta_trans
-            or delta_angle > cfg.keyframe_delta_angle
-            or delta_time > cfg.keyframe_delta_time
-        ):
-            self.keyframe = filtered
-            self.registration.set_target(self.keyframe)
-            self.keyframe_pose = odom
-            self.keyframe_stamp = stamp
+            if cfg.transform_thresholding:
+                delta = np.linalg.inv(self.prev_trans) @ trans
+                dx = np.linalg.norm(delta[:3, 3])
+                da = float(np.arccos(np.clip(_quat_w(delta[:3, :3]), -1.0, 1.0)))
+                if dx > cfg.max_acceptable_trans or da > cfg.max_acceptable_angle:
+                    return self.keyframe_pose @ self.prev_trans
+
             self.prev_time = stamp
-            self.prev_trans = np.eye(4)
+            self.prev_trans = trans
 
-        return odom
+            delta_trans = float(np.linalg.norm(trans[:3, 3]))
+            delta_angle = float(np.arccos(np.clip(_quat_w(trans[:3, :3]), -1.0, 1.0)))
+            delta_time = stamp - self.keyframe_stamp
+            if (
+                delta_trans > cfg.keyframe_delta_trans
+                or delta_angle > cfg.keyframe_delta_angle
+                or delta_time > cfg.keyframe_delta_time
+            ):
+                with GLOBAL_TIMER.span("keyframe_switch"):
+                    self.keyframe = filtered
+                    self.registration.set_target(self.keyframe)
+                    self.keyframe_pose = odom
+                    self.keyframe_stamp = stamp
+                    self.prev_time = stamp
+                    self.prev_trans = np.eye(4)
+
+            return odom
 
     def _publish_status(self, trans, converged, error, num_inliers, keyframe_count, msf_delta, msf_source):
         """ScanMatchingStatus fields (scan_matching_odometry_nodelet.cpp:

@@ -34,6 +34,7 @@ from ..core.cloud import PointCloud
 from ..core.config import OdometryConfig, RegistrationConfig
 from ..core.device import resolve_device
 from ..registration import factory
+from ..utils.metrics import GLOBAL_TIMER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +69,11 @@ def _next_target(switch: torch.Tensor, cloud: PointCloud, src, make_tgt, tgt):
     """The keyframe target after this frame: selected elementwise on the
     device where the factory allows it, else built only when the host reads
     that the frame switched."""
-    if factory.elementwise_target(tgt):
-        return _select(switch, make_tgt(cloud, src), tgt)
-    return make_tgt(cloud, src) if bool(switch) else tgt
+    with GLOBAL_TIMER.span("keyframe_switch"):
+        if factory.elementwise_target(tgt):
+            return _select(switch, make_tgt(cloud, src), tgt)
+        GLOBAL_TIMER.count("host_sync.keyframe_switch")
+        return make_tgt(cloud, src) if bool(switch) else tgt
 
 
 def device_step_impl(
@@ -90,68 +93,69 @@ def device_step_impl(
     constant_velocity_guess: bool = False,
 ):
     """One odometry frame (matching(), scan_matching_odometry_nodelet.cpp:165-262)."""
-    src = prep(cloud)
-    guess = se3.compose(state.prev_trans, msf_delta)
-    if constant_velocity_guess:
-        # translation-only warm start from the last accepted frame-to-frame
-        # motion, capped at 2 m/frame; extrapolating rotation fed attitude
-        # jitter forward and ran away in the JAX package's round 5
-        pd_t = state.prev_delta[:3, 3]
-        sane = (torch.linalg.norm(pd_t) <= 2.0) & torch.isfinite(pd_t).all()
-        delta_cv = torch.eye(4, dtype=guess.dtype, device=guess.device)
-        delta_cv[:3, 3] = torch.where(sane, pd_t, 0.0)
-        guess = se3.compose(guess, delta_cv)
-    res = align(state.tgt, src, guess)
+    with GLOBAL_TIMER.span("odometry_step"):
+        src = prep(cloud)
+        guess = se3.compose(state.prev_trans, msf_delta)
+        if constant_velocity_guess:
+            # translation-only warm start from the last accepted frame-to-frame
+            # motion, capped at 2 m/frame; extrapolating rotation fed attitude
+            # jitter forward and ran away in the JAX package's round 5
+            pd_t = state.prev_delta[:3, 3]
+            sane = (torch.linalg.norm(pd_t) <= 2.0) & torch.isfinite(pd_t).all()
+            delta_cv = torch.eye(4, dtype=guess.dtype, device=guess.device)
+            delta_cv[:3, 3] = torch.where(sane, pd_t, 0.0)
+            guess = se3.compose(guess, delta_cv)
+        res = align(state.tgt, src, guess)
 
-    # convergence gate (:214-218): ignore the frame, keep prev_trans
-    trans = torch.where(res.converged, res.transformation, state.prev_trans)
-    # one Newton-Schulz step per frame keeps the pose chain on SO(3)
-    trans = se3.project_so3(trans)
+        # convergence gate (:214-218): ignore the frame, keep prev_trans
+        trans = torch.where(res.converged, res.transformation, state.prev_trans)
+        # one Newton-Schulz step per frame keeps the pose chain on SO(3)
+        trans = se3.project_so3(trans)
 
-    # transform thresholding (:223-233) with the reference's acos(q.w) angle
-    delta = se3.compose(se3.inverse(state.prev_trans), trans)
-    too_large = (torch.linalg.norm(delta[:3, 3]) > max_acceptable_trans) | (
-        se3.acos_qw_angle(delta[:3, :3]) > max_acceptable_angle
-    )
-    reject = too_large & res.converged & bool(transform_thresholding)
-    trans = torch.where(reject, state.prev_trans, trans)
-    accepted = res.converged & ~reject
+        # transform thresholding (:223-233) with the reference's acos(q.w) angle
+        delta = se3.compose(se3.inverse(state.prev_trans), trans)
+        too_large = (torch.linalg.norm(delta[:3, 3]) > max_acceptable_trans) | (
+            se3.acos_qw_angle(delta[:3, :3]) > max_acceptable_angle
+        )
+        reject = too_large & res.converged & bool(transform_thresholding)
+        trans = torch.where(reject, state.prev_trans, trans)
+        accepted = res.converged & ~reject
 
-    odom = se3.compose(state.keyframe_pose, trans)
+        odom = se3.compose(state.keyframe_pose, trans)
 
-    # keyframe switch (:244-252)
-    d_trans = torch.linalg.norm(trans[:3, 3])
-    d_angle = se3.acos_qw_angle(trans[:3, :3])
-    d_time = stamp - state.keyframe_stamp
-    switch = accepted & (
-        (d_trans > keyframe_delta_trans) | (d_angle > keyframe_delta_angle) | (d_time > keyframe_delta_time)
-    )
+        # keyframe switch (:244-252)
+        d_trans = torch.linalg.norm(trans[:3, 3])
+        d_angle = se3.acos_qw_angle(trans[:3, :3])
+        d_time = stamp - state.keyframe_stamp
+        switch = accepted & (
+            (d_trans > keyframe_delta_trans) | (d_angle > keyframe_delta_angle) | (d_time > keyframe_delta_time)
+        )
 
-    eye = torch.eye(4, dtype=odom.dtype, device=odom.device)
-    # frame-to-frame motion of this frame (for the constant-velocity warm
-    # start); the previous estimate is kept when the frame was rejected
-    frame_delta = se3.compose(se3.inverse(state.prev_trans), trans)
-    new_state = OdomState(
-        tgt=_next_target(switch, cloud, src, make_tgt, state.tgt),
-        keyframe_pose=torch.where(switch, odom, state.keyframe_pose),
-        prev_trans=torch.where(switch, eye, torch.where(accepted, trans, state.prev_trans)),
-        keyframe_stamp=torch.where(switch, stamp, state.keyframe_stamp),
-        prev_delta=torch.where(accepted, frame_delta, state.prev_delta),
-    )
-    n_src = torch.clamp(cloud.mask.sum(dtype=torch.int32), min=1)
-    status = dict(
-        converged=res.converged,
-        error=res.error,
-        iterations=res.iterations,
-        num_inliers=res.num_inliers,
-        inlier_fraction=res.num_inliers.to(odom.dtype) / n_src.to(odom.dtype),
-        keyframe_switched=switch,
-        relative_pose=res.transformation,
-        # ScanMatchingStatus.prediction_errors[0] (scan_matching_odometry_
-        # nodelet.cpp:330-332): T_final^-1 * msf_delta
-        prediction_error=se3.compose(se3.inverse(res.transformation), msf_delta),
-    )
-    return new_state, odom, status
+        eye = torch.eye(4, dtype=odom.dtype, device=odom.device)
+        # frame-to-frame motion of this frame (for the constant-velocity warm
+        # start); the previous estimate is kept when the frame was rejected
+        frame_delta = se3.compose(se3.inverse(state.prev_trans), trans)
+        new_state = OdomState(
+            tgt=_next_target(switch, cloud, src, make_tgt, state.tgt),
+            keyframe_pose=torch.where(switch, odom, state.keyframe_pose),
+            prev_trans=torch.where(switch, eye, torch.where(accepted, trans, state.prev_trans)),
+            keyframe_stamp=torch.where(switch, stamp, state.keyframe_stamp),
+            prev_delta=torch.where(accepted, frame_delta, state.prev_delta),
+        )
+        n_src = torch.clamp(cloud.mask.sum(dtype=torch.int32), min=1)
+        status = dict(
+            converged=res.converged,
+            error=res.error,
+            iterations=res.iterations,
+            num_inliers=res.num_inliers,
+            inlier_fraction=res.num_inliers.to(odom.dtype) / n_src.to(odom.dtype),
+            keyframe_switched=switch,
+            relative_pose=res.transformation,
+            # ScanMatchingStatus.prediction_errors[0] (scan_matching_odometry_
+            # nodelet.cpp:330-332): T_final^-1 * msf_delta
+            prediction_error=se3.compose(se3.inverse(res.transformation), msf_delta),
+        )
+        return new_state, odom, status
 
 
 def initial_state(tgt, stamp: float, dtype: torch.dtype, device) -> OdomState:
@@ -201,6 +205,7 @@ class DeviceOdometry:
         have_guess = msf_delta is not None
         if msf_delta is None:
             msf_delta = torch.eye(4, dtype=dtype)
+        GLOBAL_TIMER.count_copies("device_odometry_args", self.device, 2)
         self.state, odom, status = device_step_impl(
             self.state, cloud,
             torch.tensor(stamp, dtype=dtype, device=self.device),

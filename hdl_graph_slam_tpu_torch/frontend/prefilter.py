@@ -17,6 +17,7 @@ from ..core.cloud import PointCloud
 from ..core.config import PrefilterConfig
 from ..core.device import resolve_device
 from ..ops import filters, voxel
+from ..utils.metrics import GLOBAL_TIMER
 
 
 def make_prefilter_fn(cfg: PrefilterConfig, out_capacity: int):
@@ -31,22 +32,23 @@ def make_prefilter_fn(cfg: PrefilterConfig, out_capacity: int):
     )
 
     def run(cloud: PointCloud, base_to_sensor: torch.Tensor, ang_vel: torch.Tensor) -> PointCloud:
-        if cfg.deskewing:
-            cloud = filters.deskew(cloud, ang_vel, cfg.scan_period)
-        cloud = cloudlib.transform(cloud, base_to_sensor)
-        if cfg.use_distance_filter:
-            cloud = filters.distance_filter(cloud, cfg.distance_near_thresh, cfg.distance_far_thresh)
-        if cfg.downsample_method in ("VOXELGRID", "APPROX_VOXELGRID"):
-            # ApproximateVoxelGrid is served by the exact centroid grid
-            downsample = voxel.voxel_downsample_local if use_local_keys else voxel.voxel_downsample
-            cloud = downsample(cloud, cfg.downsample_resolution, max_voxels=out_capacity)
-        else:
-            cloud = cloudlib.compact(cloud, capacity=out_capacity)
-        if cfg.outlier_removal_method == "STATISTICAL":
-            cloud = filters.statistical_outlier_removal(cloud, cfg.statistical_mean_k, cfg.statistical_stddev)
-        elif cfg.outlier_removal_method == "RADIUS":
-            cloud = filters.radius_outlier_removal(cloud, cfg.radius_radius, cfg.radius_min_neighbors)
-        return cloud
+        with GLOBAL_TIMER.span("prefilter"):
+            if cfg.deskewing:
+                cloud = filters.deskew(cloud, ang_vel, cfg.scan_period)
+            cloud = cloudlib.transform(cloud, base_to_sensor)
+            if cfg.use_distance_filter:
+                cloud = filters.distance_filter(cloud, cfg.distance_near_thresh, cfg.distance_far_thresh)
+            if cfg.downsample_method in ("VOXELGRID", "APPROX_VOXELGRID"):
+                # ApproximateVoxelGrid is served by the exact centroid grid
+                downsample = voxel.voxel_downsample_local if use_local_keys else voxel.voxel_downsample
+                cloud = downsample(cloud, cfg.downsample_resolution, max_voxels=out_capacity)
+            else:
+                cloud = cloudlib.compact(cloud, capacity=out_capacity)
+            if cfg.outlier_removal_method == "STATISTICAL":
+                cloud = filters.statistical_outlier_removal(cloud, cfg.statistical_mean_k, cfg.statistical_stddev)
+            elif cfg.outlier_removal_method == "RADIUS":
+                cloud = filters.radius_outlier_removal(cloud, cfg.radius_radius, cfg.radius_min_neighbors)
+            return cloud
 
     return run
 
@@ -75,8 +77,6 @@ class Prefilter:
             xyz=cloud.xyz.to(self.device), mask=cloud.mask.to(self.device),
             intensity=None if cloud.intensity is None else cloud.intensity.to(self.device),
         )
-        return self._run(
-            cloud,
-            torch.as_tensor(base_to_sensor, dtype=dtype, device=self.device),
-            torch.as_tensor(ang_vel, dtype=dtype, device=self.device),
-        )
+        args = [torch.as_tensor(a, dtype=dtype) for a in (base_to_sensor, ang_vel)]
+        GLOBAL_TIMER.count_copies("prefilter_args", self.device, sum(a.device.type == "cpu" for a in args))
+        return self._run(cloud, *[a.to(self.device) for a in args])

@@ -18,6 +18,7 @@ import torch
 from ..core.cloud import PAD_COORD, PointCloud
 from ..core.config import OdometryConfig, PrefilterConfig
 from ..core.device import resolve_device
+from ..utils.metrics import GLOBAL_TIMER
 from .odometry_device import OdomState, device_step_impl, initial_state, make_method_fns, step_kwargs
 from .prefilter import make_prefilter_fn
 
@@ -56,6 +57,7 @@ class OdometryWindow:
         self.device = resolve_device(device)
         self._pf = make_prefilter_fn(prefilter_cfg, out_capacity) if prefilter_cfg is not None else None
         self._fns = make_method_fns(self.cfg.registration, max_voxels=max_voxels)
+        self.frames = 0  # frames through init_state and the windows: the next frame's index
 
     def _prefilter(self, cloud: PointCloud, ang_vel: torch.Tensor) -> PointCloud:
         if self._pf is None:
@@ -73,6 +75,7 @@ class OdometryWindow:
         if ang_vel is None:
             ang_vel = torch.zeros(3, dtype=dtype)
         cloud = self._prefilter(cloud, torch.as_tensor(ang_vel, dtype=dtype, device=self.device))
+        self.frames = 1
         return initial_state(make_tgt(cloud, prep(cloud)), stamp, dtype, self.device)
 
     def run(self, state: OdomState, xyz, mask, stamps, ang_vel=None):
@@ -86,26 +89,31 @@ class OdometryWindow:
     def run_with_clouds(self, state: OdomState, xyz, mask, stamps, ang_vel=None):
         """Like :meth:`run` but also returns the per-frame prefiltered clouds as
         (K, out_capacity, 3) xyz + (K, out_capacity) mask tensors."""
-        dtype = state.keyframe_pose.dtype
-        dev = self.device
-        xyz = torch.as_tensor(xyz, dtype=dtype).to(dev)
-        mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
-        stamps = torch.as_tensor(stamps, dtype=dtype).to(dev)
-        k = stamps.shape[0]
-        ang_vel = (torch.zeros((k, 3), dtype=dtype, device=dev) if ang_vel is None
-                   else torch.as_tensor(ang_vel, dtype=dtype).to(dev))
-        prep, make_tgt, align = self._fns
-        msf = torch.eye(4, dtype=dtype, device=dev)
-        kwargs = step_kwargs(self.cfg)
-        odoms, statuses, fxyz, fmask = [], [], [], []
-        for i in range(k):
-            cloud = self._prefilter(PointCloud(xyz=xyz[i], mask=mask[i]), ang_vel[i])
-            state, odom, status = device_step_impl(
-                state, cloud, stamps[i], msf, prep, make_tgt, align, **kwargs
-            )
-            odoms.append(odom)
-            statuses.append(status)
-            fxyz.append(cloud.xyz)
-            fmask.append(cloud.mask)
-        status = {key: torch.stack([s[key] for s in statuses]) for key in statuses[0]}
-        return state, torch.stack(odoms), status, torch.stack(fxyz), torch.stack(fmask)
+        first = self.frames
+        with GLOBAL_TIMER.span("window", rid=first):
+            dtype = state.keyframe_pose.dtype
+            dev = self.device
+            inputs = [torch.as_tensor(x, dtype=t) for x, t in ((xyz, dtype), (mask, torch.bool), (stamps, dtype))]
+            if ang_vel is not None:
+                inputs.append(torch.as_tensor(ang_vel, dtype=dtype))
+            GLOBAL_TIMER.count_copies("window_inputs", dev, sum(x.device.type == "cpu" for x in inputs))
+            xyz, mask, stamps, *rest = [x.to(dev) for x in inputs]
+            k = stamps.shape[0]
+            ang_vel = rest[0] if rest else torch.zeros((k, 3), dtype=dtype, device=dev)
+            prep, make_tgt, align = self._fns
+            msf = torch.eye(4, dtype=dtype, device=dev)
+            kwargs = step_kwargs(self.cfg)
+            odoms, statuses, fxyz, fmask = [], [], [], []
+            for i in range(k):
+                with GLOBAL_TIMER.span("frame", rid=first + i):
+                    cloud = self._prefilter(PointCloud(xyz=xyz[i], mask=mask[i]), ang_vel[i])
+                    state, odom, status = device_step_impl(
+                        state, cloud, stamps[i], msf, prep, make_tgt, align, **kwargs
+                    )
+                odoms.append(odom)
+                statuses.append(status)
+                fxyz.append(cloud.xyz)
+                fmask.append(cloud.mask)
+            self.frames = first + k
+            status = {key: torch.stack([s[key] for s in statuses]) for key in statuses[0]}
+            return state, torch.stack(odoms), status, torch.stack(fxyz), torch.stack(fmask)

@@ -23,6 +23,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ..utils.metrics import GLOBAL_TIMER
 from .linearize import _DOF, _edge_terms, _offsets
 from .types import EDGE_SPECS, GraphData
 
@@ -120,6 +121,8 @@ def solve_pcg(sys: LinearizedSystem, lam: torch.Tensor, free: torch.Tensor, max_
         # frozen once the loop's condition fails, as the while_loop stops
         x, r, z, p, rz = (torch.where(live, a, c) for a, c in ((x_n, x), (r_n, r), (z_n, z), (p_n, p), (rz_n, rz)))
         live = live & (torch.linalg.norm(r) > thresh)
-        if (i + 1) % CHECK_EVERY == 0 and not bool(live):  # host sync
-            break
+        if (i + 1) % CHECK_EVERY == 0:
+            GLOBAL_TIMER.count("host_sync.pcg_live")
+            if not bool(live):  # host sync
+                break
     return x

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.metrics import GLOBAL_TIMER
 from .linearize import Linearizer, apply_delta, free_dof_mask
 from .pcg import linearize_blocks, solve_pcg
 from .schur import has_landmark_coupling, solve_schur
@@ -101,39 +102,50 @@ def optimize(data: GraphData, max_iterations: int = 512, linear_solver: str = "d
     done = torch.zeros((), dtype=torch.bool, device=dev)
 
     for i in range(max_iterations):
-        if linear_solver == "pcg":
-            sys_ = linearize_blocks(data)
-            chi2_rob, bf = sys_.chi2_robust, sys_.b * free_f
-            dx = solve_pcg(sys_, lam, free)
-        else:
-            H, b, _, chi2_rob = lin.system(data)
-            bf = b * free_f
-            if linear_solver == "schur":
-                Hf = H * free_f[:, None] * free_f[None, :] + torch.diag(1.0 - free_f)
-                dx = solve_schur(Hf + lam * torch.diag(free_f), bf, 6 * data.poses.shape[0])
+        with GLOBAL_TIMER.span("lm_iteration"):
+            GLOBAL_TIMER.count("graph_lm_iterations")
+            if linear_solver == "pcg":
+                with GLOBAL_TIMER.span("linearize"):
+                    sys_ = linearize_blocks(data)
+                chi2_rob, bf = sys_.chi2_robust, sys_.b * free_f
+                with GLOBAL_TIMER.span("linear_solve"):
+                    dx = solve_pcg(sys_, lam, free)
             else:
-                dx = dense_step(H, b, lam, free_f)
-        data_new = apply_delta(data, dx)
-        _, chi2_new = lin.chi2(data_new)
+                with GLOBAL_TIMER.span("linearize"):
+                    H, b, _, chi2_rob = lin.system(data)
+                bf = b * free_f
+                with GLOBAL_TIMER.span("linear_solve"):
+                    if linear_solver == "schur":
+                        Hf = H * free_f[:, None] * free_f[None, :] + torch.diag(1.0 - free_f)
+                        dx = solve_schur(Hf + lam * torch.diag(free_f), bf, 6 * data.poses.shape[0])
+                    else:
+                        dx = dense_step(H, b, lam, free_f)
+            with GLOBAL_TIMER.span("trial_chi2"):
+                data_new = apply_delta(data, dx)
+                _, chi2_new = lin.chi2(data_new)
 
-        accept = (chi2_new < chi2_rob) & torch.isfinite(chi2_new)
-        denom = torch.dot(dx, lam * dx - bf)
-        rho = (chi2_rob - chi2_new) / torch.where(denom.abs() < 1e-30, 1e-30, denom)
-        lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam_next = torch.where(accept, lam_acc, lam * nu)
-        nu_next = torch.where(accept, 2.0, 2.0 * nu)
-        step_small = accept & (dx.abs().amax() < 1e-10)
-        done_next = step_small | (lam_next > 1e30)
+            accept = (chi2_new < chi2_rob) & torch.isfinite(chi2_new)
+            denom = torch.dot(dx, lam * dx - bf)
+            rho = (chi2_rob - chi2_new) / torch.where(denom.abs() < 1e-30, 1e-30, denom)
+            lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+            lam_next = torch.where(accept, lam_acc, lam * nu)
+            nu_next = torch.where(accept, 2.0, 2.0 * nu)
+            step_small = accept & (dx.abs().amax() < 1e-10)
+            done_next = step_small | (lam_next > 1e30)
 
-        # frozen once done: every field keeps its value and the count stops
-        live = ~done
-        data = _select(live & accept, data_new, data)
-        lam = torch.where(live, lam_next, lam)
-        nu = torch.where(live, nu_next, nu)
-        it = it + live.to(it.dtype)
-        done = done | done_next
-        if (i + 1) % CHECK_EVERY == 0 and bool(done):  # host sync
-            break
+            # frozen once done: every field keeps its value and the count stops
+            live = ~done
+            data = _select(live & accept, data_new, data)
+            lam = torch.where(live, lam_next, lam)
+            nu = torch.where(live, nu_next, nu)
+            it = it + live.to(it.dtype)
+            done = done | done_next
+            if (i + 1) % CHECK_EVERY == 0:
+                with GLOBAL_TIMER.span("done_check"):
+                    GLOBAL_TIMER.count("host_sync.graph_done")
+                    stop = bool(done)
+                if stop:
+                    break
 
     chi2_raw1, chi2_rob1 = lin.chi2(data)
     stats = OptimizeStats(iterations=it, chi2_before=chi2_raw0, chi2_after=chi2_raw1,

@@ -17,6 +17,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..utils.metrics import GLOBAL_TIMER
 from .robust import KERNEL_IDS
 
 # edge-type registry: (vertex kinds, measurement shape, residual dim)
@@ -251,6 +252,7 @@ class GraphBuilder:
         """Write optimized vertex estimates back into the builder (one copy
         to the host for all vertex kinds)."""
         flat = torch.cat([data.poses.reshape(-1), data.planes.reshape(-1), data.points.reshape(-1)])
+        GLOBAL_TIMER.count("host_sync.update_estimates")
         flat = flat.cpu().numpy().astype(np.float64)
         n_pose, n_plane = data.poses.numel(), data.planes.numel()
         poses = flat[:n_pose].reshape(-1, 4, 4)

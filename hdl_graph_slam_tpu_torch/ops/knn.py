@@ -45,6 +45,7 @@ from typing import Tuple
 import torch
 
 from .. import kernels
+from ..utils.metrics import GLOBAL_TIMER
 
 _VALID_ABS = 1.0e5
 
@@ -366,7 +367,9 @@ def radius_count(query: torch.Tensor, target: torch.Tensor, radius: float) -> to
         return radius_count_plain(query, target, radius)
     if query.device.type != "cuda":
         raise ValueError(f"radius_count: unsupported device {query.device}")
-    return _radius_launch(query, target, radius, None)
+    # with the tracer on the kernel adds its statistics to the tracer's slots
+    stats = GLOBAL_TIMER.device_counter("radius_count", query.device) if GLOBAL_TIMER.on else None
+    return _radius_launch(query, target, radius, stats)
 
 
 radius_count.launches = 0
@@ -384,20 +387,22 @@ def radius_count_tiles(query: torch.Tensor, target: torch.Tensor, radius: float,
     kernel reports them itself (one launch, counted in
     ``radius_count.launches``); with ``own_boxes`` every lane computes its
     target tiles' boxes from their rows instead of reading the launch's
-    table (the kernel's fallback path, for checks). On CPU tensors they are
-    radius_tile_plan's, with the plain twin's counts."""
+    table (the kernel's fallback path, for checks), and ``wait_expired``
+    counts the lanes that computed a tile's boxes because its stamp did not
+    come in time. On CPU tensors they are radius_tile_plan's, with the plain
+    twin's counts (and no wait)."""
     _check("radius_count_tiles", query, target)
     pairs = -(-query.shape[0] // RC_TILE) * -(-target.shape[0] // RC_TILE)
     if query.device.type == "cpu":
         plan = radius_tile_plan(query, target, radius)
-        return dict(tile_pairs=pairs, full=int((plan == 2).sum()), point=int((plan == 1).sum()),
+        return dict(tile_pairs=pairs, full=int((plan == 2).sum()), point=int((plan == 1).sum()), wait_expired=0,
                     counts=radius_count_plain(query, target, radius))
     if query.device.type != "cuda":
         raise ValueError(f"radius_count_tiles: unsupported device {query.device}")
-    stats = torch.zeros(2, dtype=torch.int32, device=query.device)
+    stats = torch.zeros(3, dtype=torch.int32, device=query.device)
     counts = _radius_launch(query, target, radius, stats, own_boxes)
-    full, point = stats.tolist()
-    return dict(tile_pairs=pairs, full=full, point=point, counts=counts)
+    full, point, expired = stats.tolist()
+    return dict(tile_pairs=pairs, full=full, point=point, wait_expired=expired, counts=counts)
 
 
 def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.cloud import PointCloud
+from ..utils.metrics import GLOBAL_TIMER
 
 
 class PlaneRansacResult(NamedTuple):
@@ -50,6 +51,8 @@ def fit_plane_from_triplets(cloud: PointCloud, tri: torch.Tensor, distance_thres
     inlier = ((xyz @ normal.T + d[None, :]).abs() < distance_thresh) & cloud.mask[:, None]
     counts = torch.where(degenerate, -1, inlier.sum(0, dtype=torch.int32))
     best = torch.argmax(counts)  # the first maximum, as jnp.argmax
+    # each of the four indexings by the 0-dim ``best`` reads it to the host
+    GLOBAL_TIMER.count_copies("ransac_best", best.device, 4)
     return PlaneRansacResult(
         coeffs=torch.cat([normal[best], d[best][None]]),
         inlier_mask=inlier[:, best],

@@ -102,34 +102,34 @@ class SlamPipeline:
         if xyz is None or np.size(xyz) == 0:
             # the reference skips empty clouds (prefiltering_nodelet.cpp:111-113)
             return self.odometry_trajectory[-1][1] if self.odometry_trajectory else np.eye(4)
-        with GLOBAL_TIMER.span("ingest"):
-            cloud = cloudlib.from_numpy(xyz, intensity=intensity, device=self.device)
-        with GLOBAL_TIMER.span("prefilter"):
+        with GLOBAL_TIMER.span("frame", rid=len(self.odometry_trajectory)):
+            with GLOBAL_TIMER.span("ingest"):
+                cloud = cloudlib.from_numpy(xyz, intensity=intensity, device=self.device)
             filtered = self.prefilter(cloud, ang_vel=self._last_ang_vel if self.cfg.prefilter.deskewing else None)
-        msf_delta, msf_source = None, "imu"
-        if self.imu_predictor is not None:
-            msf_delta = self.imu_predictor.predict_delta(stamp)
-        elif self.cfg.odometry.enable_robot_odometry_init_guess:
-            # the reference's if/else-if order: the IMU frontend wins when
-            # enabled (scan_matching_odometry_nodelet.cpp:182-207)
-            msf_delta = self._robot_odom_delta(self._prev_frame_time, stamp)
-            msf_source = "odometry"
-        with GLOBAL_TIMER.span("odometry"):
-            odom = self.odometry.step(stamp, filtered, msf_delta=msf_delta, msf_source=msf_source)
-            if isinstance(odom, torch.Tensor):  # DeviceOdometry's pose stays on the device
-                odom = odom.cpu().numpy()
-            odom = np.asarray(odom, dtype=np.float64)
-        self._prev_frame_time = stamp
-        self.odometry_trajectory.append((stamp, odom))
-        self.slam.add_frame(stamp, odom, filtered)
-        if self.floor is not None:
-            with GLOBAL_TIMER.span("floor_detection"):
+            msf_delta, msf_source = None, "imu"
+            if self.imu_predictor is not None:
+                msf_delta = self.imu_predictor.predict_delta(stamp)
+            elif self.cfg.odometry.enable_robot_odometry_init_guess:
+                # the reference's if/else-if order: the IMU frontend wins when
+                # enabled (scan_matching_odometry_nodelet.cpp:182-207)
+                msf_delta = self._robot_odom_delta(self._prev_frame_time, stamp)
+                msf_source = "odometry"
+            with GLOBAL_TIMER.span("odometry"):
+                odom = self.odometry.step(stamp, filtered, msf_delta=msf_delta, msf_source=msf_source)
+                if isinstance(odom, torch.Tensor):  # DeviceOdometry's pose stays on the device
+                    GLOBAL_TIMER.count("host_sync.device_odometry_pose")
+                    odom = odom.cpu().numpy()
+                odom = np.asarray(odom, dtype=np.float64)
+            self._prev_frame_time = stamp
+            self.odometry_trajectory.append((stamp, odom))
+            self.slam.add_frame(stamp, odom, filtered)
+            if self.floor is not None:
                 self._detect_floor(stamp, filtered)
+        # the backend cycle is a request of its own (its spans are optimize_cycle's)
         if self._last_optimize_stream_time is None:
             self._last_optimize_stream_time = stamp
         elif stamp - self._last_optimize_stream_time >= self.cfg.backend.graph_update_interval:
-            with GLOBAL_TIMER.span("optimize_cycle"):
-                self.slam.optimize_cycle()
+            self.slam.optimize_cycle()
             self._last_optimize_stream_time = stamp
         return odom
 
@@ -245,15 +245,17 @@ class SlamPipeline:
             base = 0
             if state is None:
                 # the first frame bootstraps the keyframe (:166-174)
-                stamp0 = pending[0][0]
-                first = cloudlib.from_numpy(pending[0][1], capacity=cap, device=self.device)
-                w0 = pending[0][2]
-                state = win.init_state(stamp0, first, ang_vel=w0)
-                self.odometry_trajectory.append((stamp0, np.eye(4)))
-                cloud0 = self.prefilter(first, ang_vel=w0)
-                self.slam.add_frame(stamp0, np.eye(4), cloud0)
-                if self.floor is not None:
-                    self._detect_floor(stamp0, cloud0)
+                with GLOBAL_TIMER.span("frame", rid=n):
+                    stamp0 = pending[0][0]
+                    with GLOBAL_TIMER.span("ingest"):
+                        first = cloudlib.from_numpy(pending[0][1], capacity=cap, device=self.device)
+                    w0 = pending[0][2]
+                    state = win.init_state(stamp0, first, ang_vel=w0)
+                    self.odometry_trajectory.append((stamp0, np.eye(4)))
+                    cloud0 = self.prefilter(first, ang_vel=w0)
+                    self.slam.add_frame(stamp0, np.eye(4), cloud0)
+                    if self.floor is not None:
+                        self._detect_floor(stamp0, cloud0)
                 n += 1
                 base = 1
                 if len(pending) == 1:
@@ -264,6 +266,7 @@ class SlamPipeline:
             state, odoms, _status, fxyz, fmask = win.run_with_clouds(
                 state, xyz, mask, stamps, ang_vel=_ang_vels(pending[base:])
             )
+            GLOBAL_TIMER.count("host_sync.window_poses")
             odoms = odoms.cpu().numpy().astype(np.float64)  # one copy per window
             for i in range(len(stamps)):
                 stamp = float(stamps[i])
@@ -272,10 +275,12 @@ class SlamPipeline:
                 n += 1
                 if not self.slam.keyframe_updater.would_update(odom):
                     continue
-                cloud = cloudlib.PointCloud(xyz=fxyz[i], mask=fmask[i])
-                self.slam.add_frame(stamp, odom, cloud)
-                if self.floor is not None:
-                    self._detect_floor(stamp, cloud)
+                # the keyframe's backend work, a span of its frame's request
+                with GLOBAL_TIMER.span("frame", rid=n - 1):
+                    cloud = cloudlib.PointCloud(xyz=fxyz[i], mask=fmask[i])
+                    self.slam.add_frame(stamp, odom, cloud)
+                    if self.floor is not None:
+                        self._detect_floor(stamp, cloud)
             pending.clear()
 
         executor = None
@@ -369,8 +374,7 @@ class AsyncBackend:
     def _loop(self):
         while not self._stop.wait(self.interval):
             try:
-                with GLOBAL_TIMER.span("async_optimize_cycle"):
-                    self._on_device(self.slam.optimize_cycle)
+                self._on_device(self.slam.optimize_cycle)
                 self.cycles += 1
             except Exception as e:  # surfaced on stop; never kills ingestion
                 self.errors.append(e)

@@ -34,6 +34,7 @@ import torch
 
 from ..core import se3
 from ..ops.small_solve import solve_spd
+from ..utils.metrics import GLOBAL_TIMER
 
 
 class AlignResult(NamedTuple):
@@ -178,38 +179,44 @@ def lm_loop(
         raise ValueError("reassoc_displacement > 0 requires r_max")
     if associate_linearize is None:
         raise ValueError("lm_loop requires associate_linearize")
-    select = select or _select_rows
-    s, corr, lin, lam0 = _lm_init(associate_linearize, guess, lm_init_lambda_factor)
-    it = 0
-    converged = False
-    if not gated:
-        while it < max_iterations and not converged:
-            if it:  # the first step's association is _lm_init's, at the same pose
-                corr, lin = associate_linearize(s.T)
-            s, _, _, _ = _lm_step(s, lin, corr, cost_at, transformation_epsilon)
-            it += 1
-            converged = bool(s.converged)  # host sync: one per iteration
-    else:
-        disp = torch.zeros_like(lam0)
-        while it < max_iterations and not converged:
-            s2, d, accept, trial = _lm_step(s, lin, corr, linearize_at, transformation_epsilon)
-            lin = select(accept, trial, lin)  # the linearization at s2.T
-            it += 1
-            s, refresh, disp = _lm_gate(s, s2, d, accept, disp, r_max, reassoc_displacement, lam0)
-            converged, do_refresh = torch.stack([s.converged, refresh]).tolist()  # host sync
-            if do_refresh:
-                corr, lin = associate_linearize(s.T)
-        if not converged:
-            # honest error on a max-iterations exit: the last cost may have
-            # been evaluated under a stale association
-            s = s._replace(error=cost_at(s.T, associate(s.T)))
-    return AlignResult(
-        transformation=s.T,
-        converged=s.converged,
-        iterations=torch.tensor(it, dtype=torch.int32, device=guess.device),
-        error=s.error,
-        num_inliers=s.num_inliers,
-    )
+    with GLOBAL_TIMER.span("align"):
+        select = select or _select_rows
+        s, corr, lin, lam0 = _lm_init(associate_linearize, guess, lm_init_lambda_factor)
+        it = refreshes = 0
+        converged = False
+        if not gated:
+            while it < max_iterations and not converged:
+                if it:  # the first step's association is _lm_init's, at the same pose
+                    corr, lin = associate_linearize(s.T)
+                s, _, _, _ = _lm_step(s, lin, corr, cost_at, transformation_epsilon)
+                it += 1
+                converged = bool(s.converged)  # host sync: one per iteration
+        else:
+            disp = torch.zeros_like(lam0)
+            while it < max_iterations and not converged:
+                s2, d, accept, trial = _lm_step(s, lin, corr, linearize_at, transformation_epsilon)
+                lin = select(accept, trial, lin)  # the linearization at s2.T
+                it += 1
+                s, refresh, disp = _lm_gate(s, s2, d, accept, disp, r_max, reassoc_displacement, lam0)
+                converged, do_refresh = torch.stack([s.converged, refresh]).tolist()  # host sync
+                if do_refresh:
+                    refreshes += 1
+                    corr, lin = associate_linearize(s.T)
+            if not converged:
+                # honest error on a max-iterations exit: the last cost may have
+                # been evaluated under a stale association
+                s = s._replace(error=cost_at(s.T, associate(s.T)))
+        GLOBAL_TIMER.count("lm_iterations", it)
+        GLOBAL_TIMER.count("lm_reassociations", refreshes)
+        GLOBAL_TIMER.count("host_sync.lm_loop", it)
+        GLOBAL_TIMER.count_copies("lm_iteration_count", guess.device)
+        return AlignResult(
+            transformation=s.T,
+            converged=s.converged,
+            iterations=torch.tensor(it, dtype=torch.int32, device=guess.device),
+            error=s.error,
+            num_inliers=s.num_inliers,
+        )
 
 
 def _like(proto: tuple, fields: list) -> tuple:
@@ -261,34 +268,42 @@ def lm_loop_batched(
         raise ValueError("reassoc_displacement > 0 requires r_max")
     if associate_linearize is None:
         raise ValueError("lm_loop_batched requires associate_linearize")
-    select = select or _select_rows
-    dev = guess.device
-    s, corr, lin, lam0 = _lm_init(associate_linearize, guess, lm_init_lambda_factor)
-    it = torch.zeros_like(lam0, dtype=torch.int32)
-    live = torch.ones_like(lam0, dtype=torch.bool)
-    disp = torch.zeros_like(lam0)
-    for _ in range(max_iterations):
-        s2, d, accept, trial = _lm_step(s, lin, corr, linearize_at if gated else cost_at, transformation_epsilon)
+    with GLOBAL_TIMER.span("align_batched"):
+        select = select or _select_rows
+        dev = guess.device
+        s, corr, lin, lam0 = _lm_init(associate_linearize, guess, lm_init_lambda_factor)
+        it = torch.zeros_like(lam0, dtype=torch.int32)
+        live = torch.ones_like(lam0, dtype=torch.bool)
+        disp = torch.zeros_like(lam0)
+        passes = 0
+        for _ in range(max_iterations):
+            passes += 1
+            s2, d, accept, trial = _lm_step(s, lin, corr, linearize_at if gated else cost_at, transformation_epsilon)
+            if gated:
+                s2, refresh, disp_next = _lm_gate(s, s2, d, accept, disp, r_max, reassoc_displacement, lam0)
+                disp = torch.where(live, disp_next, disp)
+                do_refresh = live & refresh
+                lin = select(live & accept, trial, lin)  # the linearization at each row's s.T
+            s = _select_rows(live, s2, s)
+            it = it + live.to(it.dtype)
+            live = ~s.converged & (it < max_iterations)
+            # host sync: one flag vector per iteration. Gated, the problems whose
+            # own refresh fired re-associate; otherwise every live one does.
+            flags = torch.stack([live, do_refresh] if gated else [live, live]).cpu()
+            if not bool(flags[0].any()):
+                break
+            if bool(flags[1].any()):
+                GLOBAL_TIMER.count_copies("lm_loop_batched_rows", dev)
+                rows = flags[1].to(dev)
+                fresh, fresh_lin = associate_linearize(s.T)
+                corr, lin = _select_rows(rows, fresh, corr), select(rows, fresh_lin, lin)
+        GLOBAL_TIMER.count("lm_iterations_batched", passes)
+        GLOBAL_TIMER.count("host_sync.lm_loop_batched", passes)
         if gated:
-            s2, refresh, disp_next = _lm_gate(s, s2, d, accept, disp, r_max, reassoc_displacement, lam0)
-            disp = torch.where(live, disp_next, disp)
-            do_refresh = live & refresh
-            lin = select(live & accept, trial, lin)  # the linearization at each row's s.T
-        s = _select_rows(live, s2, s)
-        it = it + live.to(it.dtype)
-        live = ~s.converged & (it < max_iterations)
-        # host sync: one flag vector per iteration. Gated, the problems whose
-        # own refresh fired re-associate; otherwise every live one does.
-        flags = torch.stack([live, do_refresh] if gated else [live, live]).cpu()
-        if not bool(flags[0].any()):
-            break
-        if bool(flags[1].any()):
-            rows = flags[1].to(dev)
-            fresh, fresh_lin = associate_linearize(s.T)
-            corr, lin = _select_rows(rows, fresh, corr), select(rows, fresh_lin, lin)
-    if gated and not bool(s.converged.all()):
-        # honest error on a max-iterations exit, per problem
-        fresh = cost_at(s.T, associate(s.T))
-        s = s._replace(error=torch.where(s.converged, s.error, fresh))
-    return AlignResult(transformation=s.T, converged=s.converged, iterations=it, error=s.error,
-                       num_inliers=s.num_inliers)
+            GLOBAL_TIMER.count("host_sync.lm_loop_batched_exit")
+        if gated and not bool(s.converged.all()):
+            # honest error on a max-iterations exit, per problem
+            fresh = cost_at(s.T, associate(s.T))
+            s = s._replace(error=torch.where(s.converged, s.error, fresh))
+        return AlignResult(transformation=s.T, converged=s.converged, iterations=it, error=s.error,
+                           num_inliers=s.num_inliers)

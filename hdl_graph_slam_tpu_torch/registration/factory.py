@@ -22,6 +22,7 @@ from ..core.cloud import PointCloud
 from ..core.config import RegistrationConfig
 from ..ops import knn
 from ..ops import voxel as voxelops
+from ..utils.metrics import GLOBAL_TIMER
 from . import gicp, icp, ndt, vgicp
 from .base import AlignResult
 
@@ -121,7 +122,13 @@ class Registration:
         if self._target_state is None:
             raise RuntimeError("set_target() must be called before align()")
         dtype, dev = source.xyz.dtype, source.xyz.device
-        guess = torch.eye(4, dtype=dtype, device=dev) if guess is None else torch.as_tensor(guess, dtype=dtype).to(dev)
+        if guess is None:
+            guess = torch.eye(4, dtype=dtype, device=dev)
+        else:
+            guess = torch.as_tensor(guess, dtype=dtype)
+            if guess.device != dev:
+                GLOBAL_TIMER.count("host_sync.align_guess")  # a blocking copy to the device
+                guess = guess.to(dev)
         result = align(self.cfg, self._target_state, prepare_source(self.cfg, source), guess)
         self._last_result = result
         self._last_source = source
@@ -133,6 +140,7 @@ class Registration:
             return float("inf")
         score = knn.fitness_score(self._target_cloud.valid_xyz(), self._last_source.xyz, self._last_source.mask,
                                   self._last_result.transformation, max_range=max_range)
+        GLOBAL_TIMER.count("host_sync.fitness_score")
         return float(score)
 
 

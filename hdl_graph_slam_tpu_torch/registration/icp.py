@@ -32,6 +32,7 @@ from ..core import se3
 from ..core.cloud import PointCloud
 from ..ops import knn
 from ..ops.eig3 import _eigvec_for, eigvalsh3
+from ..utils.metrics import GLOBAL_TIMER
 from .base import AlignResult, _select_rows, se3_delta_converged
 
 
@@ -166,6 +167,7 @@ def align(
                         num_inliers=valid.sum(-1, dtype=torch.int32))
         live = ~s.converged & (s.it < max_iterations)
         s = _select_rows(live, new, s)
+        GLOBAL_TIMER.count("host_sync.icp_align")
         if not bool((~s.converged & (s.it < max_iterations)).any()):  # host sync: one a iteration
             break
     out = AlignResult(transformation=s.T, converged=s.converged, iterations=s.it, error=s.error,

@@ -61,6 +61,7 @@ from ..core.cloud import PointCloud
 from ..ops import knn as knnops
 from ..ops import voxel as voxelops
 from ..ops.small_solve import gershgorin_min, solve_spd_checked
+from ..utils.metrics import GLOBAL_TIMER
 from .base import AlignResult
 
 
@@ -592,10 +593,12 @@ def align(
             new, refresh = fixed_cells_step(None)
             nxt, live_next = advance(new)
             # host sync: one flag tensor per iteration
+            GLOBAL_TIMER.count("host_sync.ndt_align")
             flags = torch.stack([live_next, live & refresh, live & need_rescue]).cpu()
             if bool(flags[2].any()):
                 new, refresh = fixed_cells_step(full_score(T_best))
                 nxt, live_next = advance(new)
+                GLOBAL_TIMER.count("host_sync.ndt_align")
                 flags = torch.stack([live_next, live & refresh]).cpu()
         else:
             alpha = torch.where(improve, alpha_b, 0.0)
@@ -604,6 +607,7 @@ def align(
                 T=_rows(improve, T_best, s.T), it=s.it + 1, converged=alpha < eps,
                 score=torch.where(improve, best_score, current), num_inliers=ninl, idx=idx_n, found=found_n,
                 disp=zero))
+            GLOBAL_TIMER.count("host_sync.ndt_align")
             flags = live_next[None].cpu()  # host sync: one flag tensor per iteration
         was_live, s, live = live, nxt, live_next
         if line_search_fixed_cells and bool(flags[1].any()):

@@ -48,7 +48,9 @@ def main(argv=None) -> int:
     ap.add_argument("--load", help="load a previous dump before processing")
     ap.add_argument("--out-graph-json", help="write graph visualization JSON")
     ap.add_argument("--ref-poses", help="KITTI ground-truth poses for ATE/RPE")
-    ap.add_argument("--trace", help="write per-stage timing summary JSON")
+    ap.add_argument("--trace", help="trace the run and write its summary JSON here: per span name its calls, "
+                                    "total and self time; the program's counters (host syncs by site, LM "
+                                    "iterations, loop candidates, ...)")
     ap.add_argument("--device-odometry", action="store_true", help="per-frame odometry with the pose kept on the device")
     ap.add_argument("--window", type=int, default=0,
                     help="offline throughput mode: process N frames per device window (frontend/window.py)")
@@ -60,7 +62,8 @@ def main(argv=None) -> int:
     from .pipeline import SlamPipeline, frames_from_kitti, frames_from_rosbag
     from .utils.metrics import GLOBAL_TIMER
 
-    GLOBAL_TIMER.reset()  # the spans of this run only
+    if args.trace:
+        GLOBAL_TIMER.enable()  # the spans of this run only
     cfg = PRESETS[args.preset]()
     pipe = SlamPipeline(cfg, cloud_capacity=args.cloud_capacity, device_odometry=args.device_odometry,
                         device=args.device)
@@ -134,6 +137,7 @@ def main(argv=None) -> int:
         rpe_t, rpe_r = traj_io.rpe_rmse(est, ref_traj)
         print(json.dumps({"ate_rmse_m": ate, "rpe_trans_m": rpe_t, "rpe_rot_rad": rpe_r}))
     if args.trace:
+        GLOBAL_TIMER.disable()
         GLOBAL_TIMER.dump_summary(args.trace)
     return 0
 

@@ -36,6 +36,7 @@ from .ops import voxel as voxelops
 from .registration.gicp import GicpCloud
 from .registration.ndt import NdtTarget
 from .registration.vgicp import VgicpTarget
+from .utils.metrics import GLOBAL_TIMER
 
 STATE_KEYS = ("tgt_xyz", "tgt_mask", "tgt_covs", "keyframe_pose", "prev_trans", "keyframe_stamp", "prev_delta")
 ODOM_KEYS = STATE_KEYS[3:]
@@ -64,10 +65,13 @@ def graph_data_from_numpy(arrays: Dict[str, np.ndarray], dtype=torch.float64, de
     def tensor(key, field):
         a = np.asarray(arrays[key])
         if field in _FLOAT_KEYS:
-            return torch.from_numpy(np.array(a, dtype=np.float64)).to(device=dev, dtype=dtype)
-        if field in ("vi", "vj", "kernel_id"):
-            return torch.from_numpy(np.array(a, dtype=np.int64)).to(dev)
-        return torch.from_numpy(np.array(a, dtype=bool)).to(dev)
+            t = torch.from_numpy(np.array(a, dtype=np.float64)).to(device=dev, dtype=dtype)
+        elif field in ("vi", "vj", "kernel_id"):
+            t = torch.from_numpy(np.array(a, dtype=np.int64)).to(dev)
+        else:
+            t = torch.from_numpy(np.array(a, dtype=bool)).to(dev)
+        GLOBAL_TIMER.count_copies("graph_freeze", t)
+        return t
 
     edges = {e: EdgeTable(**{k: tensor(f"{e}.{k}", k) for k in EDGE_KEYS}) for e in EDGE_SPECS}
     return GraphData(**{k: tensor(k, k) for k in GRAPH_VERTEX_KEYS}, edges=edges)

@@ -26,7 +26,7 @@ from hdl_graph_slam_tpu_torch.core import cloud
 from hdl_graph_slam_tpu_torch.core.config import PRESETS, SlamConfig
 from hdl_graph_slam_tpu_torch.io import pcd, trajectory
 from hdl_graph_slam_tpu_torch.pipeline import AsyncBackend, SlamPipeline, frames_from_rosbag
-from hdl_graph_slam_tpu_torch.utils.metrics import GLOBAL_TIMER, device_trace
+from hdl_graph_slam_tpu_torch.utils.metrics import GLOBAL_TIMER, device_trace, tracing
 from test_cli import write_bag
 from test_pipeline import drive_square, make_world, scan_at
 
@@ -101,8 +101,11 @@ def test_cli_writes_every_output(cli_run):
     stats, out = cli_run["stats"], cli_run["out"]
     assert stats["frames"] == 8 and stats["keyframes"] >= 2 and stats["edges"] >= 1
     trace = json.load(open(out["trace.json"]))
-    assert {"ingest", "prefilter", "odometry", "optimize_cycle", "save_map", "dump"} <= set(trace)
-    assert trace["odometry"]["count"] == 8
+    spans = trace["spans"]
+    assert {"frame", "ingest", "prefilter", "odometry", "optimize_cycle", "save_map", "dump"} <= set(spans)
+    assert spans["odometry"]["count"] == spans["frame"]["count"] == 8
+    assert all(0.0 <= v["self_s"] <= v["total_s"] for v in spans.values())
+    assert trace["counters"]["lm_iterations"] > 0 and trace["dropped"] == 0
     graph = json.load(open(out["graph.json"]))
     assert len(graph["nodes"]) == stats["keyframes"] and graph["num_edges"] == stats["edges"]
     xyz, _ = pcd.load_pcd(out["map.pcd"])
@@ -194,21 +197,21 @@ def test_cli_defaults_to_cuda_and_never_falls_back(bag, tmp_path):
 
 
 def test_process_frame_spans(world):
-    """process_frame records its stages in GLOBAL_TIMER (reset first: the
-    timer is module-global)."""
+    """With the tracer on, process_frame records its stages in GLOBAL_TIMER
+    (module-global, so enabled for this run only: it is off by default)."""
     cfg = PRESETS["outdoor"]()
     pipe = SlamPipeline(cfg, cloud_capacity=2048, device="cpu")
-    GLOBAL_TIMER.reset()
-    for i in range(4):
-        pose = np.eye(4)
-        pose[0, 3] = 0.5 * i
-        pipe.process_frame(2.0 * i, scan_at(world, pose, seed=i, n_keep=2000))
-    counts = GLOBAL_TIMER.summary()
-    assert {k: counts[k]["count"] for k in ("ingest", "prefilter", "odometry", "floor_detection")} == dict(
-        ingest=4, prefilter=4, odometry=4, floor_detection=4)
+    with tracing():
+        for i in range(4):
+            pose = np.eye(4)
+            pose[0, 3] = 0.5 * i
+            pipe.process_frame(2.0 * i, scan_at(world, pose, seed=i, n_keep=2000))
+    counts = GLOBAL_TIMER.summary()["spans"]
+    assert {k: counts[k]["count"] for k in ("frame", "ingest", "prefilter", "odometry", "floor")} == dict(
+        frame=4, ingest=4, prefilter=4, odometry=4, floor=4)
     assert counts["optimize_cycle"]["count"] >= 1
     GLOBAL_TIMER.reset()
-    assert GLOBAL_TIMER.summary() == {}
+    assert GLOBAL_TIMER.summary() == {"spans": {}, "counters": {}, "dropped": 0}
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):

@@ -39,7 +39,8 @@ def test_launch_constants_match_the_cuda_source():
     makes one launch; the kernel's only atomics are integer ones (the shared
     list's length, the statistics); a tile's stamp is stored with release
     semantics after its boxes, and read with acquire semantics; a lane
-    computes a tile's boxes itself past the wait, or at once with ``own``."""
+    computes a tile's boxes itself past the wait (counted in the third
+    statistic), or at once with ``own``."""
     src = source()
     c = {k: int(v) for k, v in re.findall(r"constexpr int (kRc\w+) = (\d+);", src)}
     assert (knn.RC_TILE, knn.RC_BOX) == (c["kRcTile"], c["kRcBox"]) == (32, 14)
@@ -48,23 +49,26 @@ def test_launch_constants_match_the_cuda_source():
     assert body.count("<<<") == 1 and "radius_count_kernel<<<p.grid, p.threads, 0," in body
     kernel = src[src.index("// -- radius_count ---"):src.index("// -- launch plans ---")]
     assert re.findall(r"\b(atomic\w+)\(([&\w +]+),", kernel) == [
-        ("atomicAdd", "&s_nlist"), ("atomicAdd", "stats"), ("atomicAdd", "stats + 1")]
+        ("atomicAdd", "&s_nlist"), ("atomicAdd", "stats"), ("atomicAdd", "stats + 1"), ("atomicAdd", "stats + 2")]
     store = re.search(r"void store_boxes\(.*?\n\}", kernel, re.S).group(0)
     assert "if (lane != 0) return;" in store and store.rstrip("}\n ").endswith("st_release(stamps + j, stamp);")
     assert "st.release.gpu.global.u32" in kernel and "ld.acquire.gpu.global.u32" in kernel
     load = re.search(r"TileBoxes load_boxes\(.*?\n\}", kernel, re.S).group(0)
-    assert "if (own) return lane_boxes(t, m, j);" in load and "if (!ready) return lane_boxes(t, m, j);" in load
+    assert "if (own) return lane_boxes(t, m, j);" in load
+    assert re.search(r"if \(!ready\) \{\s*\+\+expired;\s*return lane_boxes\(t, m, j\);\s*\}", load)
 
 
 def test_radius_count_tiles_on_the_cpu_reads_the_plan():
     """On CPU tensors radius_count_tiles reports radius_tile_plan's tile
-    pairs with the plain twin's counts, and launches nothing."""
+    pairs with the plain twin's counts and no expired wait, and launches
+    nothing."""
     q, t, r = padded_case()
     before = knn.radius_count.launches
     got = knn.radius_count_tiles(q, t, r)
     plan = knn.radius_tile_plan(q, t, r)
     assert (got["tile_pairs"], got["full"], got["point"]) == (plan.numel(), int((plan == 2).sum()),
                                                               int((plan == 1).sum()))
+    assert got["wait_expired"] == 0  # the plan waits for no stamp
     assert torch.equal(got["counts"], knn.radius_count_plain(q, t, r)) and knn.radius_count.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         knn.radius_count_tiles(q.to("meta"), t.to("meta"), r)
