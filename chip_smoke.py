@@ -153,7 +153,13 @@ before the last line:
            linear_solver "pcg" and "schur" (graph_solvers) on a 20-pose
            chain with a floor plane and on the golden-sized ring with the
            floor plane as a landmark: card against CPU (1e-6 m) and against
-           the dense solve (1e-5 m), a repeat bit for bit.
+           the dense solve (1e-5 m), a repeat bit for bit. Then the
+           replayed solve (CUDA graphs, graph/solver.py) against the eager
+           loop on the golden-sized ring (dense) and on it with the floor
+           landmark (dense and Schur), 60 iterations: poses, planes, lam,
+           iterations and the chi2s bit for bit; ms an iteration of each,
+           in turns after a warm-up, the first (capturing) solve's seconds,
+           the graphs captured and the host syncs a solve of each.
 8. slam    golden_town "base" through SlamPipeline.run_windowed on the
            card: all 601 frames, keyframes, loop edges, ATE (optimized and
            odometry keyframes, Umeyama-aligned as golden_town.py:179-180),
@@ -1174,7 +1180,9 @@ def graph_phase() -> None:
 
     g = synthetic_graph(0)
     # device operations per LM iteration: a 2-iteration solve minus a
-    # 1-iteration one (these solves also warm both paths up before timing)
+    # 1-iteration one (these solves also warm both paths up before timing),
+    # both replaying the graphs a first solve captured
+    optimize(g.freeze(dtype=torch.float64, device="cuda"), max_iterations=1)
     ops = []
     for its in (1, 2):
         data = g.freeze(dtype=torch.float64, device="cuda")
@@ -1204,6 +1212,7 @@ def graph_phase() -> None:
             "graph: card vs CPU chi2 differ")
     require(row["chi2_after_cuda"] < row["chi2_before"], "graph: the solve did not lower chi2")
     graph_solvers()
+    graph_replay()
 
 
 def graph_solvers() -> None:
@@ -1261,6 +1270,64 @@ def graph_solvers() -> None:
                 require(row["vs_dense_max_abs_err"] <= GRAPH_SOLVER_VS_DENSE_M, f"{what}: vs the dense solve: {row}")
             require(row["repeat_identical"], f"{what}: a repeat on the card differs")
             require(row["chi2_after_cuda"] < row["chi2_before"], f"{what}: the solve did not lower chi2")
+
+
+def graph_replay(iterations: int = 60, rounds: int = 2) -> None:
+    """The replayed pose-graph solve against the eager loop on the card:
+    each graph and solver solved first through optimize's replayed path
+    (its graphs captured), then by turns eager, replayed, replayed, eager
+    (``rounds`` times), every solve from the same frozen graph. Gates: each
+    replayed solve equal to the eager one bit for bit (poses, planes, lam,
+    iterations, the four chi2s), every pass of a replayed solve replayed."""
+    import torch
+    from hdl_graph_slam_tpu_torch.graph import solver
+    from hdl_graph_slam_tpu_torch.graph.linearize import Linearizer
+
+    class EagerLinearizer(Linearizer):
+        capturable = False  # the same sums, launched pass by pass
+
+    for name, g, linear_solver in (("golden", synthetic_graph(0), "dense"),
+                                   ("golden_floor", synthetic_graph(0, floor=True), "dense"),
+                                   ("golden_floor", synthetic_graph(0, floor=True), "schur")):
+        data = g.freeze(dtype=torch.float64, device="cuda")
+
+        def solve(lin):
+            torch.cuda.synchronize()
+            replayed, t0 = solver.GRAPHS.replayed, time.perf_counter()
+            out, st = solver.optimize(data, max_iterations=iterations, linear_solver=linear_solver, linearizer=lin)
+            got = (out.poses.cpu().numpy(), out.planes.cpu().numpy(), [float(x) for x in st])
+            return got, time.perf_counter() - t0, solver.GRAPHS.replayed - replayed
+
+        captures = solver.GRAPHS.captures
+        first, first_s, _ = solve(None)
+        captures = solver.GRAPHS.captures - captures
+        eager, _, _ = solve(EagerLinearizer())  # warm-up
+
+        def same(got):
+            return all(np.array_equal(a, b) for a, b in zip(got[:2], eager[:2])) and got[2] == eager[2]
+
+        times = {"replayed": [], "eager": []}
+        identical, replayed_passes = [same(first)], []
+        for _ in range(rounds):
+            for lin in (EagerLinearizer(), None, None, EagerLinearizer()):
+                got, sec, passes = solve(lin)
+                times["eager" if lin else "replayed"].append(sec)
+                if lin is None:
+                    replayed_passes.append(passes)
+                identical.append(same(got))
+        its = int(eager[2][0])
+        _, syncs_replayed = count_host_syncs(lambda: solve(None))
+        _, syncs_eager = count_host_syncs(lambda: solve(EagerLinearizer()))
+        ms = {k: [1e3 * t / max(its, 1) for t in v] for k, v in times.items()}
+        row = dict(phase="graph", graph=name, solver=linear_solver, replay_vs_eager=True, dof=data.num_dof,
+                   iterations=its, replayed_identical=all(identical), replayed_passes=replayed_passes,
+                   ms_per_iteration_replayed=float(np.median(ms["replayed"])),
+                   ms_per_iteration_eager=float(np.median(ms["eager"])), ms_replayed=ms["replayed"],
+                   ms_eager=ms["eager"], first_solve_s=first_s, captures=captures,
+                   host_syncs_per_solve_replayed=syncs_replayed, host_syncs_per_solve_eager=syncs_eager)
+        emit(row)
+        require(row["replayed_identical"], f"graph {name} {linear_solver}: the replayed solve differs from the eager")
+        require(all(p >= its for p in replayed_passes), f"graph {name} {linear_solver}: passes ran eager: {row}")
 
 
 def slam_profile(pipe, frames) -> None:
@@ -2909,7 +2976,7 @@ def cli_phase(golden) -> dict:
     map_xyz, _ = pcd.load_pcd(out["map.pcd"])
     cells, centre_ulps = voxel_cells(map_xyz, MAP_RESOLUTION)
     with open(out["trace.json"]) as f:
-        trace = json.load(f)
+        trace = json.load(f)["spans"]  # the tracer's summary: spans, counters, dropped
     row = dict(
         phase="cli", preset=CLI_PRESET, command="python -m hdl_graph_slam_tpu_torch.run " + " ".join(cmd[4:]),
         frames=stats["frames"], keyframes=stats["keyframes"], edges=stats["edges"], loop_edges=loops,

@@ -17,8 +17,6 @@ import math
 
 import torch
 
-from ..utils.metrics import GLOBAL_TIMER
-
 _EPS = 1e-12
 
 
@@ -46,9 +44,9 @@ def translation(T: torch.Tensor) -> torch.Tensor:
 def _assemble(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3), (..., 3) -> (..., 4, 4) homogeneous matrix."""
     bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
-    if GLOBAL_TIMER.on and R.dim() == 2:  # one element: the scalar is copied to it (a batch is filled)
-        GLOBAL_TIMER.count_copies("se3_assemble", bottom)
-    bottom[..., 0, 3] = 1.0
+    # a fill kernel: an item assignment would copy the host scalar to a single
+    # element (a blocking copy, which a CUDA graph cannot hold)
+    bottom[..., 3:].fill_(1.0)
     return torch.cat([torch.cat([R, t[..., :, None]], dim=-1), bottom], dim=-2)
 
 

@@ -201,7 +201,13 @@ class Linearizer:
     is given, on the graph's device. ``parallel/dist.py::ShardedLinearizer``
     splits the tables into shards and returns the shards' summed (H, b,
     chi2), the same on every shard and process, so that every replica of
-    the LM loop takes the same branch."""
+    the LM loop takes the same branch.
+
+    ``capturable``: whether an LM pass through this linearizer makes only
+    device work on the graph's device, with no host sync, so that
+    graph/solver.py can capture it in a CUDA graph."""
+
+    capturable = True
 
     def system(self, data: GraphData) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         return build_system(data)

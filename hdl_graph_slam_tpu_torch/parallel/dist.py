@@ -185,7 +185,10 @@ class ShardedLinearizer(Linearizer):
     the vertices to every shard's device, linearizes each shard there, adds
     the partials on ``home`` in shard order, and hands the sums to
     ``reduce`` (the cross-process all-reduce of parallel/multihost.py), if
-    any, which returns them summed over every process."""
+    any, which returns them summed over every process. Its copies between
+    devices and its collectives keep the LM loop eager."""
+
+    capturable = False
 
     def __init__(self, shards: Sequence[Tuple[torch.device, dict]], home: torch.device,
                  reduce: Optional[Callable[[List[torch.Tensor]], List[torch.Tensor]]] = None):

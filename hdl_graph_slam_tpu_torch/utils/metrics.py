@@ -65,7 +65,10 @@ COUNTERS = {
     "lm_iterations": "passes of lm_loop (per-frame scan matching: GICP, the loop detector's sequential path)",
     "lm_reassociations": "gated re-associations in lm_loop (the refreshes after the first association)",
     "lm_iterations_batched": "passes of lm_loop_batched (the loop matcher's candidate batches, VGICP)",
-    "graph_lm_iterations": "passes of the pose-graph LM's host loop, frozen passes after done included",
+    "graph_lm_iterations": "passes of the pose-graph LM, frozen passes after done included, eager or replayed",
+    "graph_lm_captures": "CUDA graphs captured from a pose-graph solve's steps (graph/solver.py, once per shape key "
+                         "and step)",
+    "graph_lm_replayed": "passes of the pose-graph LM run by a CUDA graph's replay (of graph_lm_iterations)",
     "keyframes_admitted": "keyframes an optimize cycle took from the queue into the graph",
     "loop_candidates": "candidate keyframes the loop detector aligned",
     "loops_matched": "candidates that converged within fitness_score_thresh",

@@ -391,6 +391,23 @@ def test_slice_reduction_leaves_the_program_annotations_out():
     assert traced["idle_share_in"]["graph_optimize"] is None
 
 
+def test_window_numbers_read_the_replay_counters():
+    """The pose graph's replay share is its replayed passes over all its
+    passes, beside the graphs captured and the host ms of a replayed pass
+    (the graph_replay spans over the replayed passes); without replays the
+    share is 0, without passes None."""
+    tool = _tool()
+    spans = [dict(name="graph_replay", t0_ns=0, t1_ns=int(2e6)), dict(name="graph_replay", t0_ns=0, t1_ns=int(6e6))]
+    program = dict(counters={"graph_lm_iterations": 40, "graph_lm_replayed": 36, "graph_lm_captures": 3},
+                   spans=spans, dropped=0)
+    got = tool.window_numbers(program, frames=10)
+    assert (got["graph_captures"], got["graph_replayed"]) == (3, 36)
+    assert got["graph_replay_share"] == 0.9 and got["graph_replay_host_ms_per_pass"] == pytest.approx(8.0 / 36)
+    eager = tool.window_numbers(dict(counters={"graph_lm_iterations": 8}, spans=[], dropped=0), frames=1)
+    assert eager["graph_replay_share"] == 0.0 and eager["graph_replay_host_ms_per_pass"] is None
+    assert tool.window_numbers(dict(counters={}, spans=[], dropped=0), frames=0)["graph_replay_share"] is None
+
+
 def test_window_numbers_read_the_drained_counters():
     """Per frame and per cycle ratios of a drained window, None where the
     window holds nothing to read."""

@@ -26,7 +26,10 @@ and prints one JSON line:
   ``align`` spans;
 - the window's counters (host syncs by site against torch's count, LM
   iterations, loop candidates, the pose graph's passes against the
-  iterations its solves report) and the per-layer numbers they give.
+  iterations its solves report, and how many of them CUDA graphs replayed:
+  ``graph_lm_replayed`` / ``graph_lm_iterations`` is the replay share,
+  ``graph_lm_captures`` the graphs captured) and the per-layer numbers
+  they give.
 
 ``same_work`` times the cell's first window (a 64-frame odometry window,
 or ``--frames`` frames of a fresh ``slam_run`` pipeline) ``--rounds`` times a
@@ -185,6 +188,7 @@ def window_numbers(program: dict, frames: int, sync_count=None, graph_iterations
     c, spans = program["counters"], program["spans"]
     syncs = sum(v for k, v in c.items() if k.startswith("host_sync."))
     lm_ms = sorted((s["t1_ns"] - s["t0_ns"]) * 1e-6 for s in spans if s["name"] == "lm_iteration")
+    replay_ms = sum((s["t1_ns"] - s["t0_ns"]) * 1e-6 for s in spans if s["name"] == "graph_replay")
     cycles = sum(1 for s in spans if s["name"] == "optimize_cycle")
     out = {
         "frames": frames,
@@ -198,6 +202,11 @@ def window_numbers(program: dict, frames: int, sync_count=None, graph_iterations
         "loop_accept_share": (c.get("loops_added", 0) / c["loop_candidates"]) if c.get("loop_candidates") else None,
         "graph_passes": c.get("graph_lm_iterations"),
         "graph_iterations_reported": graph_iterations,
+        "graph_captures": c.get("graph_lm_captures", 0),
+        "graph_replayed": c.get("graph_lm_replayed", 0),
+        "graph_replay_share": c.get("graph_lm_replayed", 0) / c["graph_lm_iterations"]
+        if c.get("graph_lm_iterations") else None,
+        "graph_replay_host_ms_per_pass": replay_ms / c["graph_lm_replayed"] if c.get("graph_lm_replayed") else None,
         "cycles": cycles,
         "dropped": program["dropped"],
     }
